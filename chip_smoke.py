@@ -16,16 +16,18 @@ exit 0):
    two nets (random weights from a numpy seed, fold-style parity-adjusted
    C, 64 bias cells, the paper's 33 thresholds) compiled on the card and
    run for votes, argmax and the noiseless cumulative staircase at
-   B in {1, 100, 4096}; the Algorithm-1 head vote (`ensemble.predict`,
-   kernel mode) on their hidden activations; both nets registered in a
-   `PicBnnServer` that answers a few hundred requests through `submit`
-   and `submit_many`.  Every kernel must have launched in this run.
+   B in {1, 100, 4096}; both nets registered in a `PicBnnServer` that
+   answers a few hundred requests through `submit` and `submit_many`.
+   Kernels 1 and 3 must have launched in this run.  Kernel 2 is not on
+   this path (the reference's pipeline never calls it either); its own
+   path is the public op `kernels.ops.cam_vote`, driven next on the two
+   nets' head queries with the counts set to 0 just before it.
 4. Correctness of what came out: the card's results equal the same
    pipelines on the CPU at every batch size and the digital oracle
-   (folded_forward_exact + votes_fused) at B = 100; served votes equal
-   direct `run`.
-5. A `{"kernels": [...]}` line (launches, error, times, bound), then, as
-   the last line, `{"ok": true, "device": {...}}`.
+   (folded_forward_exact + votes_fused) at B = 100; `ops.cam_vote`
+   equals votes_fused; served votes equal direct `run`.
+5. A `{"kernels": [...]}` line (launches on the kernel's path, error,
+   times, bound), then, as the last line, `{"ok": true, "device": ...}`.
 
 Without CUDA, or without the rest of the repository beside it, the script
 exits non-zero before printing any result.  It imports nothing of JAX.
@@ -130,13 +132,9 @@ class Card:
 
     @classmethod
     def probe(cls) -> "Card":
-        """This run's card (nvidia-smi's max SM clock, else the boost
-        clock of an H100 SXM)."""
+        """This run's card: its SM count and nvidia-smi's max SM clock."""
         sms = torch.cuda.get_device_properties(0).multi_processor_count
-        try:
-            clock = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
-        except (subprocess.SubprocessError, ValueError, IndexError):
-            clock = 1.98e9
+        clock = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
         return cls(sms, clock)
 
     def bound_ms(self, popc: float, alu: float, nbytes: float):
@@ -204,7 +202,7 @@ def run(dev: torch.device, b_main: int, batches, card: Card,
     """
     from repro_torch.configs.paper_mlp import HG_MLP, MNIST_MLP, PAPER_ENSEMBLE
     from repro_torch.core import binarize, bnn, ensemble
-    from repro_torch.kernels import binary_gemm, cam_search, fused_mlp
+    from repro_torch.kernels import binary_gemm, cam_search, fused_mlp, ops
     from repro_torch.pipeline import compile_pipeline
     from repro_torch.serve.picbnn import BatchingPolicy, PicBnnServer
     from repro_torch.spec import InferenceSpec
@@ -246,7 +244,7 @@ def run(dev: torch.device, b_main: int, batches, card: Card,
         q = binarize.pack_bits(torch.cat(
             [hidden.to(torch.uint8),
              torch.ones((b, bias), dtype=torch.uint8, device=dev)], dim=-1))
-        m["hidden_pm1"] = hidden.float() * 2 - 1
+        m["hidden_pm1"], m["q"] = hidden.float() * 2 - 1, q
         samples = torch.rand((b, n_cls, p), generator=gen, device=dev) \
             * (2 * float(thr.max()))
         thr_f = thr.float() + 0.5
@@ -260,13 +258,11 @@ def run(dev: torch.device, b_main: int, batches, card: Card,
                 f"{mid}: binary_gemm_hd (head) != plain")
         x_i8 = torch.from_numpy(m["x"]).to(dev, torch.int8)
         w_i8 = torch.from_numpy(m["folded"][0].weights_pm1).to(dev)
-        lib_ms, lib_ok = None, None
-        try:
-            mm = torch._int_mm(x_i8, w_i8.t())
-            lib_ok = bool(torch.equal(mm, n1 - 2 * k1))
-            lib_ms = device_ms(lambda: torch._int_mm(x_i8, w_i8.t()))
-        except RuntimeError as e:  # the yardstick only; not on any path
-            print(f"  torch._int_mm unavailable at {tuple(x_i8.shape)}: {e}")
+        # the library yardstick (n - 2*HD from int8 tensor cores); the
+        # port never calls it, but it must compute the same function
+        require(torch.equal(torch._int_mm(x_i8, w_i8.t()), n1 - 2 * k1),
+                f"{mid}: torch._int_mm != n - 2*binary_gemm_hd")
+        lib_ms = device_ms(lambda: torch._int_mm(x_i8, w_i8.t()))
         k1_call = time_ms(lambda: binary_gemm.binary_gemm_hd(xp, w1), 100)
         k1_ms = device_ms(lambda: binary_gemm.binary_gemm_hd(xp, w1))
         k1_plain_ms = time_ms(
@@ -278,7 +274,7 @@ def run(dev: torch.device, b_main: int, batches, card: Card,
             shape=f"x[{b},{kw0}] w[{n_hidden},{kw0}]", ms=k1_ms,
             call_ms=k1_call,
             plain_ms=k1_plain_ms, bound_ms=bound, bound_by=by,
-            library_ms=lib_ms, library_equal=lib_ok,
+            library_ms=lib_ms,
             max_abs_err=int((k1 - k1_plain).abs().max()))
 
         # kernel 2: the head vote, all three threshold forms
@@ -308,16 +304,16 @@ def run(dev: torch.device, b_main: int, batches, card: Card,
         for form, t, s in (("int", thr, None), ("float", thr_f, None),
                            ("sampled", thr, samples)):
             got = fused_mlp.fused_mlp_votes(*args, t, bias_cells=bias,
-                                            bq=pipe.bq, thr_samples=s)
+                                            thr_samples=s)
             want = fused_mlp.fused_mlp_votes_plain(*args, t, bias_cells=bias,
                                                    thr_samples=s)
             require(torch.equal(got, want),
                     f"{mid}: fused_mlp_votes[{form}] != plain")
             errs.append(int((got - want).abs().max()))
         k3_call = time_ms(lambda: fused_mlp.fused_mlp_votes(
-            *args, thr, bias_cells=bias, bq=pipe.bq), 100)
+            *args, thr, bias_cells=bias), 100)
         k3_ms = device_ms(lambda: fused_mlp.fused_mlp_votes(
-            *args, thr, bias_cells=bias, bq=pipe.bq))
+            *args, thr, bias_cells=bias))
         k3_plain_ms = time_ms(lambda: fused_mlp.fused_mlp_votes_plain(
             *args, thr, bias_cells=bias), 3)
         pairs = b * (n_hidden * kw0 + n_cls * kw_h)
@@ -366,9 +362,6 @@ def run(dev: torch.device, b_main: int, batches, card: Card,
         for bsz in batches:
             for sname, spec in specs.items():
                 results[(mid, bsz, sname)] = m["gpu"].run(m["x"][:bsz], spec)
-        m["head_pred"] = ensemble.predict(
-            m["gpu"].head, m["hidden_pm1"],
-            ensemble.EnsembleConfig(mode="kernel"))
     policy = BatchingPolicy(max_batch=256, max_wait_us=500)
     served = {}
     server = PicBnnServer(policy, devices=None if on_card else [dev])
@@ -392,9 +385,23 @@ def run(dev: torch.device, b_main: int, batches, card: Card,
     stats = server.stats()
     print(f"main path: {main_s:.2f} s, launches {launches}")
     print(stats.summary())
-    for name, n in launches.items():  # (a CPU rehearsal launches nothing)
-        require(n > 0 or not on_card,
-                f"{name} was not launched on the main path")
+    for fn in (binary_gemm.binary_gemm_hd, fused_mlp.fused_mlp_votes):
+        # (a CPU rehearsal launches nothing)
+        require(launches[fn.__name__] > 0 or not on_card,
+                f"{fn.__name__} was not launched on the main path")
+
+    # ------------------- kernel 2's own path: the public op ops.cam_vote
+    for fn in counted:
+        fn.launches = 0
+    op_votes = {mid: ops.cam_vote(m["q"], m["gpu"].head.cam.rows_packed,
+                                  m["gpu"].head.thresholds)
+                for mid, m in models.items()}
+    if on_card:
+        torch.cuda.synchronize()
+    op_launches = {fn.__name__: fn.launches for fn in counted}
+    print(f"ops.cam_vote path: launches {op_launches}")
+    require(op_launches["cam_vote"] > 0 or not on_card,
+            "cam_vote was not launched on its path (ops.cam_vote)")
     require(stats.n_requests == 2 * 400,
             f"server answered {stats.n_requests} of {2 * 400} requests")
 
@@ -416,10 +423,9 @@ def run(dev: torch.device, b_main: int, batches, card: Card,
         require(torch.equal(results[(mid, 100, "votes")].cpu(), oracle),
                 f"{mid}: votes != folded_forward_exact + votes_fused oracle")
         require(torch.equal(
-            m["head_pred"].cpu(),
-            ensemble.predict(m["cpu"].head, m["hidden_pm1"].cpu(),
-                             ensemble.EnsembleConfig())),
-            f"{mid}: kernel-mode head prediction != fused")
+            op_votes[mid].cpu(),
+            ensemble.votes_fused(m["cpu"].head, m["hidden_pm1"].cpu())),
+            f"{mid}: ops.cam_vote != votes_fused")
         direct = m["gpu"].run(m["x"][:400], specs["votes"]).cpu().numpy()
         require(np.array_equal(served[mid], direct),
                 f"{mid}: served votes != direct run")
@@ -430,9 +436,14 @@ def run(dev: torch.device, b_main: int, batches, card: Card,
     line = []
     for name, r in report.items():
         main = r["per_model"]["hg"]
+        op_path = name == "cam_vote"  # not on the main path (phase 3)
         line.append(dict(
             name=name, route="cuda", source=SOURCES[name],
-            replaces=REPLACES[name], launches=launches[name],
+            replaces=REPLACES[name],
+            path=("kernels.ops.cam_vote" if op_path
+                  else "pipeline run + server"),
+            launches=(op_launches if op_path else launches)[name],
+            main_path_launches=launches[name],
             equal=True, max_abs_err=max(
                 v["max_abs_err"] for v in r["per_model"].values()),
             ms=main["ms"], kernel_ms=main["ms"], call_ms=main["call_ms"],

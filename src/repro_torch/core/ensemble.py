@@ -9,8 +9,10 @@ so argmax(votes) == argmin(HD) == argmax of the full-precision logit.
 Execution modes:
   fused  — HD computed once per (query, row), compared against every T in
            one pass (plain PyTorch; the oracle of the kernels).
-  kernel — the same vote on the card through `kernels.ops.cam_vote`
-           (kernel 2: HD once, then the P-threshold compare).
+  kernel — the same vote through `kernels.fused_mlp.fused_mlp_votes`
+           in its head-only form (kernel 3 on the card: query in shared
+           memory, HD once, then the P-threshold compare), as the
+           reference routes it.
 
 The silicon-noise modes (`votes_faithful`, `votes_fused_noisy`,
 `accuracy_sweep`, calibrated thresholds) wait for the noise slice.
@@ -121,13 +123,16 @@ def votes_fused(head: CAMEnsembleHead, x_pm1: torch.Tensor) -> torch.Tensor:
 
 
 def votes_kernel(head: CAMEnsembleHead, x_pm1: torch.Tensor) -> torch.Tensor:
-    """The fused vote through `kernels.ops.cam_vote` (kernel 2 on the card,
-    its plain version on the CPU).  Same result as `votes_fused`."""
-    from repro_torch.kernels import ops  # local: core stays import-light
+    """The fused vote through kernel 3 with no hidden layers (its plain
+    version on the CPU).  Same result as `votes_fused`."""
+    from repro_torch.kernels import fused_mlp  # local: core stays import-light
 
     x = torch.as_tensor(x_pm1)
     q = query_with_bias(x.reshape(-1, x.shape[-1]), head.bias_cells)
-    votes = ops.cam_vote(q, head.cam.rows_packed, head.thresholds)
+    votes = fused_mlp.fused_mlp_votes(
+        q, (), (), (), head.cam.rows_packed, head.thresholds,
+        bias_cells=head.bias_cells,
+    )
     return votes.reshape(*x.shape[:-1], head.n_classes)
 
 

@@ -15,20 +15,13 @@ The pipeline runs on the card unless asked otherwise: `device=None`
 means CUDA, and without CUDA it raises; pass `device="cpu"` to run the
 plain PyTorch versions of the kernels on the CPU.
 
-Two implementations, selected by `impl`:
-
-  kernel — votes and argmax go through `kernels.fused_mlp.fused_mlp_votes`:
-           one launch of kernel 3 per batch, hidden activations resident
-           in shared memory (the default).
-  torch  — the twin of the reference's `_head_hd_xla`: per hidden layer
-           the Hamming distances from `kernels.ops.binary_gemm_hd`
-           (kernel 1 on the card), sign and repack as PyTorch elementwise
-           ops, then the head distances and the compare.
-
-The noiseless cumulative staircase needs the head distances [B, C], so
-it always takes the `torch` route (kernel 1 once per hidden layer and
-once for the head).  Results are bit-exact equal across both
-implementations and equal to the JAX reference.
+Votes and argmax go through `kernels.fused_mlp.fused_mlp_votes`: one
+launch of kernel 3 per batch, hidden activations resident in shared
+memory.  The noiseless cumulative staircase needs the head distances
+[B, C], so it takes `head_hd`, the twin of the reference's
+`_head_hd_xla`: kernel 1 (`kernels.ops.binary_gemm_hd`) once per hidden
+layer and once for the head, with sign and repack as PyTorch elementwise
+ops between them.  Both are bit-exact equal to the JAX reference.
 
 Batch-size bucketing: inputs are zero-padded to the next power-of-two
 bucket (floor `min_bucket`), and results are trimmed back; rows are
@@ -54,10 +47,7 @@ from repro_torch.core import binarize
 from repro_torch.core.cam import query_with_bias
 from repro_torch.core.ensemble import CAMEnsembleHead, EnsembleConfig, build_head
 from repro_torch.kernels import fused_mlp, ops
-from repro_torch.kernels.cam_search import vote_from_hd
 from repro_torch.spec import InferenceSpec
-
-IMPLS = ("kernel", "torch")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -149,9 +139,7 @@ class CompiledPipeline:
     layer_n_bits: tuple  # per hidden layer logical input bits
     n_in: int
     n_classes: int
-    impl: str
     device: torch.device
-    bq: int
     min_bucket: int
     head_only: bool  # no hidden layers: input feeds the CAM head directly
     max_bucket: Optional[int] = None  # serving cap on the bucket grid
@@ -207,24 +195,19 @@ class CompiledPipeline:
     # ------------------------------------------------------------------
     # programs
     # ------------------------------------------------------------------
-    def _hd(self, x_packed: torch.Tensor) -> torch.Tensor:
-        return head_hd(x_packed, self.layer_ws, self.layer_cs,
-                       self.layer_n_bits, self.head.cam.rows_packed,
-                       self.head.bias_cells)
-
     def _votes(self, x_packed: torch.Tensor) -> torch.Tensor:
-        if self.impl == "kernel":
-            return fused_mlp.fused_mlp_votes(
-                x_packed, self.layer_ws, self.layer_cs, self.layer_n_bits,
-                self.head.cam.rows_packed, self.head.thresholds,
-                bias_cells=self.head.bias_cells, bq=self.bq,
-            )
-        return vote_from_hd(self._hd(x_packed), self.head.thresholds)
+        return fused_mlp.fused_mlp_votes(
+            x_packed, self.layer_ws, self.layer_cs, self.layer_n_bits,
+            self.head.cam.rows_packed, self.head.thresholds,
+            bias_cells=self.head.bias_cells,
+        )
 
     def _staircase(self, x_packed: torch.Tensor) -> torch.Tensor:
         # the exact noiseless staircase: per-pass match indicators of the
         # deterministic compare, summed cumulatively over passes
-        hd = self._hd(x_packed)
+        hd = head_hd(x_packed, self.layer_ws, self.layer_cs,
+                     self.layer_n_bits, self.head.cam.rows_packed,
+                     self.head.bias_cells)
         thr = self.head.thresholds
         if thr.is_floating_point():
             hd = hd.to(torch.float32)
@@ -317,8 +300,6 @@ def compile_pipeline(
     folded: Sequence,
     ens_cfg: EnsembleConfig | None = None,
     *,
-    impl: str | None = None,
-    bq: int = 32,
     min_bucket: int = 64,
     max_bucket: int | None = None,
     device=None,
@@ -333,8 +314,6 @@ def compile_pipeline(
     folded  : `bnn.fold` output (or any layers with `.weights_pm1` [out,
               in] ±1 and `.c` [out]) — hidden layers + the output layer.
     ens_cfg : Algorithm-1 config (thresholds / bias cells); default paper's.
-    impl    : "kernel" (default) or "torch" — see the module docstring.
-    bq      : queries per thread block of kernel 3 (multiple of 8).
     device  : None -> the CUDA card (raises without CUDA); "cpu" runs the
               kernels' plain versions.
     max_bucket : optional cap on the bucket grid (see next_bucket).
@@ -361,9 +340,6 @@ def compile_pipeline(
         raise NotImplementedError(
             "conv layers wait for the CNN slice of the port"
         )
-    impl = impl or "kernel"
-    if impl not in IMPLS:
-        raise ValueError(f"unknown pipeline impl {impl!r}; one of {IMPLS}")
     dev = resolve_device(device)
 
     hidden, out_layer = list(folded[:-1]), folded[-1]
@@ -385,9 +361,7 @@ def compile_pipeline(
         layer_n_bits=tuple(int(np.shape(l.weights_pm1)[1]) for l in hidden),
         n_in=n_in,
         n_classes=head.n_classes,
-        impl=impl,
         device=dev,
-        bq=bq,
         min_bucket=min_bucket,
         head_only=not hidden,
         max_bucket=max_bucket,

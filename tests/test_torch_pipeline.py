@@ -29,14 +29,13 @@ NETS = {**{b: (BANK_NETS[b], BANK_BIAS[b]) for b in BANK_NETS},
         "deep": ((120, 96, 64, 33, 7), 64), "head-only": ((128, 10), 64)}
 
 
-def _pipes(name, jimpl="xla", **kw):
+def _pipes(name, jimpl="xla"):
     sizes, bias = NETS[name]
     jf, tf = random_folded(sizes, sum(map(ord, name)), bias)
     j = jpipe.compile_pipeline(jf, jens.EnsembleConfig(bias_cells=bias),
                                impl=jimpl, min_bucket=8, bq=16)
-    t = {impl: tpipe.compile_pipeline(tf, tens.EnsembleConfig(
-        bias_cells=bias), impl=impl, device="cpu", min_bucket=8, **kw)
-        for impl in tpipe.IMPLS}
+    t = tpipe.compile_pipeline(tf, tens.EnsembleConfig(bias_cells=bias),
+                               device="cpu", min_bucket=8)
     return sizes, j, t
 
 
@@ -48,24 +47,22 @@ def test_run_matches_reference_at_ragged_batches(name):
         x = pm1(rng, (b, sizes[0]))
         for sname, (jspec, tspec) in SPECS.items():
             want = np.asarray(j.run(jnp.asarray(x), jspec))
-            for impl, p in t.items():
-                got = p.run(x, tspec)
-                assert got.dtype == torch.int32, (impl, sname)
-                np.testing.assert_array_equal(
-                    got.numpy(), want, err_msg=f"{impl} {sname} B={b}")
+            got = t.run(x, tspec)
+            assert got.dtype == torch.int32, sname
+            np.testing.assert_array_equal(got.numpy(), want,
+                                          err_msg=f"{sname} B={b}")
 
 
 def test_run_matches_pallas_reference():
     sizes, j, t = _pipes("2048x64", jimpl="pallas")
     x = pm1(np.random.default_rng(4), (11, sizes[0]))
     want = np.asarray(j.run(jnp.asarray(x), JSpec()))
-    np.testing.assert_array_equal(t["kernel"].run(x, InferenceSpec()).numpy(),
+    np.testing.assert_array_equal(t.run(x, InferenceSpec()).numpy(),
                                   want)
 
 
 def test_results_are_padding_invariant_and_cached():
-    sizes, _, t = _pipes("1024x128")
-    p = t["kernel"]
+    sizes, _, p = _pipes("1024x128")
     x = pm1(np.random.default_rng(0), (37, sizes[0]))
     full = p.run(x, InferenceSpec())
     parts = torch.cat([p.run(x[:1], InferenceSpec()),
@@ -99,8 +96,6 @@ def test_unported_options_raise():
     for kw in (dict(noise=object()), dict(image_side=28), dict(donate=True)):
         with pytest.raises(NotImplementedError):
             tpipe.compile_pipeline(tf, cfg, device="cpu", **kw)
-    with pytest.raises(ValueError, match="impl"):
-        tpipe.compile_pipeline(tf, cfg, device="cpu", impl="pallas")
     p = tpipe.compile_pipeline(tf, cfg, device="cpu")
     x = pm1(np.random.default_rng(0), (3, sizes[0]))
     for spec in (InferenceSpec(noise="batch"),
@@ -114,8 +109,7 @@ def test_unported_options_raise():
 
 
 def test_to_device_round_trip():
-    sizes, _, t = _pipes("2048x64")
-    p = t["kernel"]
+    sizes, _, p = _pipes("2048x64")
     assert p.to("cpu") is p
     no_card = not torch.cuda.is_available()
     with (pytest.raises(RuntimeError, match="CUDA") if no_card
