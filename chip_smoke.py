@@ -7,25 +7,37 @@ exit 0):
 
 1. Print the card's name and power limit (nvidia-smi), build the CUDA
    kernels from the sources in this checkout, timed, with ptxas' report.
-2. Each kernel at the main path's shapes (the paper's MNIST 784-128-10 and
-   Hand-Gesture 4096-128-20 nets, B = 4096) against its plain PyTorch
-   version on the card: `torch.equal` is required.  Kernel time, plain
+2. Each kernel at the main path's shapes against its plain PyTorch
+   version on the card: `torch.equal` is required.  Kernels 1-3 at the
+   paper's MNIST 784-128-10 and Hand-Gesture 4096-128-20 MLPs, kernel 4
+   (`fused_conv_votes`, and its stage entry `conv_stage_packed`) at the
+   paper's MNIST and HG CNNs (`configs/paper_cnn.py`, full width and
+   depth: two 3x3x32 stride-2 convs + FC 128), all at B = 4096 with the
+   three threshold forms, and kernel 4 also at the unaligned (24 -> 20
+   channels, stride 1) and head-direct test configs.  Kernel 1 also at
+   the shapes the CNNs' cumulative staircase gives it (the stage entry's
+   query against the FC rows, then the head query).  Kernel time, plain
    time, and for kernel 1 the time of `torch._int_mm` on the unpacked ±1
    int8 operands (the same function, n - 2*HD; the port never calls it).
+   Then `run()` per call at each batch size, and the CNN input layer
+   (`InputEncoding.pack`) alone at B = 4096, in a `{"e2e": ...}` line.
 3. The main path, with every launch counter set to 0 just before it: the
-   two nets (random weights from a numpy seed, fold-style parity-adjusted
-   C, 64 bias cells, the paper's 33 thresholds) compiled on the card and
-   run for votes, argmax and the noiseless cumulative staircase at
-   B in {1, 100, 4096}; both nets registered in a `PicBnnServer` that
-   answers a few hundred requests through `submit` and `submit_many`.
-   Kernels 1 and 3 must have launched in this run.  Kernel 2 is not on
-   this path (the reference's pipeline never calls it either); its own
-   path is the public op `kernels.ops.cam_vote`, driven next on the two
-   nets' head queries with the counts set to 0 just before it.
+   two MLPs and the two CNNs (random weights from numpy seeds,
+   fold-style parity-adjusted C, 64 bias cells, the paper's 33
+   thresholds) compiled on the card with no device argument and run for
+   votes, argmax and the noiseless cumulative staircase at
+   B in {1, 100, 4096}; all four registered in one `PicBnnServer` that
+   answers a few hundred requests each through `submit` and
+   `submit_many`.  Kernels 1, 3 and 4 (both entries) must have launched
+   in this run.  Kernel 2 is not on this path (the reference's pipeline
+   never calls it either); its own path is the public op
+   `kernels.ops.cam_vote`, driven next on the two MLPs' head queries with
+   the counts set to 0 just before it.
 4. Correctness of what came out: the card's results equal the same
-   pipelines on the CPU at every batch size and the digital oracle
-   (folded_forward_exact + votes_fused) at B = 100; `ops.cam_vote`
-   equals votes_fused; served votes equal direct `run`.
+   pipelines on the CPU at every batch size and the digital oracles
+   (folded_forward_exact + votes_fused for the MLPs, `conv_votes_ref`
+   for the CNNs) at B = 100; `ops.cam_vote` equals votes_fused; served
+   votes equal direct `run`.
 5. A `{"kernels": [...]}` line (launches on the kernel's path, error,
    times, bound), then, as the last line, `{"ok": true, "device": ...}`.
 
@@ -54,11 +66,17 @@ REPLACES = {
     "binary_gemm_hd": "src/repro/kernels/binary_gemm.py:72",
     "cam_vote": "src/repro/kernels/cam_search.py:72",
     "fused_mlp_votes": "src/repro/kernels/fused_mlp.py:160",
+    "fused_conv_votes": "src/repro/kernels/fused_conv.py:302",
+    # kernel 4's device code stopped after the flatten: what the
+    # reference's cumulative path gets from the XLA twin at :208
+    "conv_stage_packed": "src/repro/kernels/fused_conv.py:302",
 }
 SOURCES = {
     "binary_gemm_hd": "src/repro_torch/kernels/csrc/binary_gemm.cu",
     "cam_vote": "src/repro_torch/kernels/csrc/cam_search.cu",
     "fused_mlp_votes": "src/repro_torch/kernels/csrc/fused_mlp.cu",
+    "fused_conv_votes": "src/repro_torch/kernels/csrc/fused_conv.cu",
+    "conv_stage_packed": "src/repro_torch/kernels/csrc/fused_conv.cu",
 }
 
 
@@ -162,6 +180,162 @@ def random_folded(sizes, seed, bias_cells, bnn):
     return layers
 
 
+def threshold_forms(thr, b, n_cls, gen, dev):
+    """The three threshold forms of a head: the int schedule, a float
+    schedule, and the int schedule with [B, C, P] sampled thresholds."""
+    p = thr.shape[0]
+    samples = torch.rand((b, n_cls, p), generator=gen, device=dev) \
+        * (2 * float(thr.max()))
+    return (("int", thr, None), ("float", thr.float() + 0.5, None),
+            ("sampled", thr, samples))
+
+
+def conv_work(pipe, b: int, p: int, stage: bool, kw_q: int = 0):
+    """Popcounts, 32-bit ALU operations and bytes of the function of
+    kernel 4 (stage=True: its conv stack and flatten only, writing kw_q
+    words per query) on a batch of b.
+
+    A conv output needs ceil(k*k*c_in/32) popcounts: where c_in is not a
+    multiple of 32, each position's k*k pixels are first packed densely,
+    a shift and an OR per pixel word, shared by the position's c_out
+    channels.  (The kernel as written pops the per-pixel padded k*k*Cw
+    words instead: 9 for 36 real bits in the HG CNN's conv 1.)"""
+    conv = pipe.conv
+    popc = alu = 0
+    nbytes = 4 * b * conv.side ** 2 * conv.metas[0].cw_in
+    for m, w in zip(conv.metas, conv.ws):
+        n_pos, padded = m.out_side ** 2, m.k * m.k * m.cw_in
+        dense = -(-m.n_bits // 32)
+        popc += n_pos * m.c_out * dense
+        alu += 3 * n_pos * m.c_out + (2 * n_pos * padded if dense < padded
+                                      else 0)
+        nbytes += 4 * (w.numel() + m.c_out)
+    if stage:
+        nbytes += 4 * b * kw_q
+        return b * popc, b * (2 * popc + alu), nbytes
+    head = pipe.head.cam.rows_packed
+    for w in pipe.layer_ws:
+        popc += w.numel()
+        alu += 3 * w.shape[0]
+        nbytes += 4 * (w.numel() + w.shape[0])
+    popc += head.numel()
+    alu += 2 * head.shape[0] * p
+    nbytes += 4 * (head.numel() + p + b * head.shape[0])
+    return b * popc, b * (2 * popc + alu), nbytes
+
+
+def gemm_row(card, x, w, ms, call_ms, plain_ms, lib_ms, err) -> dict:
+    """A kernels-line row of kernel 1 on x [M, Kw] against w [N, Kw]."""
+    (m, kw), n = x.shape, w.shape[0]
+    pairs = m * n * kw
+    bound, by = card.bound_ms(pairs, 2 * pairs, 4 * (m * kw + n * kw + m * n))
+    return dict(shape=f"x[{m},{kw}] w[{n},{kw}]", ms=ms, call_ms=call_ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=lib_ms, max_abs_err=err)
+
+
+def check_gemm_at_cnn(pipe, q, card, mid: str, report: dict) -> None:
+    """Kernel 1 at the shapes a CNN's cumulative staircase gives it: the
+    flattened conv query q against the FC rows (timed and bounded beside
+    `torch._int_mm` on the unpacked ±1 operands), then the head query
+    against the head rows, each `torch.equal` to the plain version."""
+    from repro_torch.core import binarize
+    from repro_torch.kernels import binary_gemm
+
+    require(len(pipe.layer_ws) == 1, f"{mid}: expected one FC layer")
+    w, head = pipe.layer_ws[0], pipe.head.cam.rows_packed
+    hd = binary_gemm.binary_gemm_hd(q, w)
+    want = binary_gemm.binary_gemm_hd_plain(q, w)
+    require(torch.equal(hd, want), f"{mid}: binary_gemm_hd (FC) != plain")
+    # the head query as pipeline.head_hd builds it: signs + bias drive bits
+    bits = ((pipe.layer_n_bits[0] - 2 * hd) + pipe.layer_cs[0][None, :]
+            >= 0).to(torch.uint8)
+    ones = torch.ones((bits.shape[0], pipe.head.bias_cells),
+                      dtype=torch.uint8, device=q.device)
+    qh = binarize.pack_bits(torch.cat([bits, ones], dim=-1))
+    qh = torch.nn.functional.pad(qh, (0, head.shape[1] - qh.shape[1]))
+    require(torch.equal(binary_gemm.binary_gemm_hd(qh, head),
+                        binary_gemm.binary_gemm_hd_plain(qh, head)),
+            f"{mid}: binary_gemm_hd (head) != plain")
+    # the library yardstick: n - 2*HD from int8 tensor cores
+    kw = q.shape[1]
+    x_i8 = binarize.unpack_bits(q, 32 * kw).to(torch.int8) * 2 - 1
+    w_i8 = binarize.unpack_bits(w, 32 * kw).to(torch.int8) * 2 - 1
+    require(torch.equal(torch._int_mm(x_i8, w_i8.t()), 32 * kw - 2 * hd),
+            f"{mid}: torch._int_mm != n - 2*binary_gemm_hd")
+    report["binary_gemm_hd"]["per_model"][mid] = row = gemm_row(
+        card, q, w, device_ms(lambda: binary_gemm.binary_gemm_hd(q, w)),
+        time_ms(lambda: binary_gemm.binary_gemm_hd(q, w), 100),
+        time_ms(lambda: binary_gemm.binary_gemm_hd_plain(q, w), 3),
+        device_ms(lambda: torch._int_mm(x_i8, w_i8.t())),
+        int((hd - want).abs().max()))
+    print(f"  {mid:9s} binary_gemm_hd == plain (FC, head) {row['shape']}: "
+          f"kernel {row['ms']} ms (call {row['call_ms']:.4f} ms), plain "
+          f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}), library {row['library_ms']}")
+
+
+def check_conv_kernels(pipe, xp, gen, card, mid: str, report: dict,
+                       timed: bool) -> None:
+    """Kernel 4 and its stage entry against their plain versions on the
+    card (all three threshold forms); with `timed`, their device, call
+    and plain times and bounds go into `report`."""
+    from repro_torch.kernels import fused_conv
+
+    conv, head = pipe.conv, pipe.head
+    b, dev = xp.shape[0], xp.device
+    args = (xp, conv.ws, conv.cs, conv.metas, pipe.layer_ws, pipe.layer_cs,
+            pipe.layer_n_bits, head.cam.rows_packed)
+    kw = dict(bias_cells=head.bias_cells, head_direct=conv.head_direct)
+    errs = []
+    for form, t, s in threshold_forms(head.thresholds, b, head.n_classes,
+                                      gen, dev):
+        got = fused_conv.fused_conv_votes(*args, t, thr_samples=s, **kw)
+        want = fused_conv.fused_conv_votes_plain(*args, t, thr_samples=s,
+                                                 **kw)
+        require(torch.equal(got, want),
+                f"{mid}: fused_conv_votes[{form}] != plain")
+        errs.append(int((got - want).abs().max()))
+    # the stage entry as the cumulative staircase calls it: zero words up
+    # to the first FC/head operand's width
+    bias = head.bias_cells if conv.head_direct else 0
+    kw_q = (pipe.layer_ws[0] if pipe.layer_ws
+            else head.cam.rows_packed).shape[1]
+    sargs = (xp, conv.ws, conv.cs, conv.metas)
+    bw = fused_conv.bias_drive_words(bias) if bias else None
+    got = fused_conv.conv_stage_packed(*sargs, bias_cells=bias, kw_q=kw_q)
+    want = fused_conv.conv_stage_packed_plain(*sargs, bw, kw_q)
+    require(torch.equal(got, want), f"{mid}: conv_stage_packed != plain")
+    stage_err = int((got - want).abs().max()) if got.numel() else 0
+    print(f"  {mid:9s} fused_conv_votes == plain (int, float, sampled), "
+          f"conv_stage_packed == plain, B={b}")
+    if not timed:
+        return
+    check_gemm_at_cnn(pipe, got, card, mid, report)
+    thr = head.thresholds
+    maps = conv.side, conv.metas[0].cw_in
+    for name, fn, plain, stage, err in (
+            ("fused_conv_votes",
+             lambda: fused_conv.fused_conv_votes(*args, thr, **kw),
+             lambda: fused_conv.fused_conv_votes_plain(*args, thr, **kw),
+             False, max(errs)),
+            ("conv_stage_packed",
+             lambda: fused_conv.conv_stage_packed(*sargs, bias_cells=bias,
+                                                  kw_q=kw_q),
+             lambda: fused_conv.conv_stage_packed_plain(*sargs, bw, kw_q),
+             True, stage_err)):
+        popc, alu, nbytes = conv_work(pipe, b, thr.shape[0], stage, kw_q)
+        bound, by = card.bound_ms(popc, alu, nbytes)
+        report[name]["per_model"][mid] = dict(
+            shape=f"x[{b},{maps[0]},{maps[0]},{maps[1]}] conv "
+                  f"{[(m.k, m.c_out, m.stride) for m in conv.metas]} "
+                  f"fc {[w.shape[0] for w in pipe.layer_ws]} "
+                  f"C={head.n_classes} P={thr.shape[0]}",
+            ms=device_ms(fn, iters=20), call_ms=time_ms(fn, 20),
+            plain_ms=time_ms(plain, 3), bound_ms=bound, bound_by=by,
+            library_ms=None, max_abs_err=err)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check needs the card",
@@ -200,9 +374,12 @@ def run(dev: torch.device, b_main: int, batches, card: Card,
     device "cpu" and small batches (every kernel then takes its plain
     version, so the kernel checks are trivially equal).
     """
+    from repro_torch.configs.paper_cnn import (HG_CNN, MNIST_CNN,
+                                               build_cnn_pipeline)
     from repro_torch.configs.paper_mlp import HG_MLP, MNIST_MLP, PAPER_ENSEMBLE
-    from repro_torch.core import binarize, bnn, ensemble
-    from repro_torch.kernels import binary_gemm, cam_search, fused_mlp, ops
+    from repro_torch.core import binarize, bnn, convnet, ensemble
+    from repro_torch.kernels import (binary_gemm, cam_search, fused_conv,
+                                     fused_mlp, ops, ref)
     from repro_torch.pipeline import compile_pipeline
     from repro_torch.serve.picbnn import BatchingPolicy, PicBnnServer
     from repro_torch.spec import InferenceSpec
@@ -225,10 +402,51 @@ def run(dev: torch.device, b_main: int, batches, card: Card,
     for m in models.values():
         m["x"] = rng.choice([-1.0, 1.0], (b_main, m["cfg"].layer_sizes[0])
                             ).astype(np.float32)
+    # the paper's CNNs: raw [0, 1] pixels in, thermometer input layer
+    cnns = {}
+    on_dev = {} if on_card else {"device": dev}
+    for mid, cfg, seed in (("mnist_cnn", MNIST_CNN, SEED + 2),
+                           ("hg_cnn", HG_CNN, SEED + 3)):
+        folded = convnet.random_folded_cnn(cfg, seed=seed)
+        cnns[mid] = dict(
+            cfg=cfg, folded=folded,
+            gpu=build_cnn_pipeline(cfg, folded, **on_dev),
+            cpu=build_cnn_pipeline(cfg, folded, device="cpu"),
+            x=rng.random((b_main, cfg.n_in)).astype(np.float32),
+        )
+    require(all(m["gpu"].device == dev for m in cnns.values()),
+            "build_cnn_pipeline() with no device did not land on the card")
 
     # ------------------------------------ kernels against their plain twins
     gen = torch.Generator(device=dev).manual_seed(SEED)
     report = {k: {"per_model": {}} for k in REPLACES}
+    # kernel 4: the paper CNNs at B = 4096, timed; the test configs with
+    # unaligned channels (24 -> 20, stride 1) and a head-direct net at a
+    # small batch
+    for mid, m in cnns.items():
+        xp = m["gpu"].conv.maps(m["gpu"].conv.pack(
+            torch.from_numpy(m["x"]).to(dev)))
+        check_conv_kernels(m["gpu"], xp, gen, card, mid, report, True)
+    enc = binarize.InputEncoding
+    for mid, cfg in (
+            ("unaligned", convnet.CNNConfig(
+                side=12, encoding=enc("thermometer", 3),
+                conv=(convnet.ConvSpec(3, 24, 2), convnet.ConvSpec(3, 20, 1)),
+                hidden=(48,), n_classes=7)),
+            ("head-dir", convnet.CNNConfig(
+                side=10, encoding=enc("thermometer", 2),
+                conv=(convnet.ConvSpec(3, 32, 2),), hidden=(), n_classes=5))):
+        pipe = build_cnn_pipeline(cfg, convnet.random_folded_cnn(cfg, seed=5),
+                                  device=dev)
+        x = torch.from_numpy(rng.random((333, cfg.n_in)).astype(np.float32))
+        check_conv_kernels(pipe, pipe.conv.maps(pipe.conv.pack(x.to(dev))),
+                           gen, card, mid, report, False)
+    for k in ("fused_conv_votes", "conv_stage_packed"):
+        for mid, row in report[k]["per_model"].items():
+            print(f"  {mid:9s} {k:17s} {row['shape']}: kernel {row['ms']} ms "
+                  f"(call {row['call_ms']:.4f} ms), plain "
+                  f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
+                  f"({row['bound_by']})")
     for mid, m in models.items():
         pipe = m["gpu"]
         xp = binarize.pack_pm1(torch.from_numpy(m["x"]).to(dev))
@@ -245,9 +463,7 @@ def run(dev: torch.device, b_main: int, batches, card: Card,
             [hidden.to(torch.uint8),
              torch.ones((b, bias), dtype=torch.uint8, device=dev)], dim=-1))
         m["hidden_pm1"], m["q"] = hidden.float() * 2 - 1, q
-        samples = torch.rand((b, n_cls, p), generator=gen, device=dev) \
-            * (2 * float(thr.max()))
-        thr_f = thr.float() + 0.5
+        forms = threshold_forms(thr, b, n_cls, gen, dev)
 
         # kernel 1: layer-1 distances (the cumulative path's largest call)
         k1 = binary_gemm.binary_gemm_hd(xp, w1)
@@ -262,25 +478,17 @@ def run(dev: torch.device, b_main: int, batches, card: Card,
         # port never calls it, but it must compute the same function
         require(torch.equal(torch._int_mm(x_i8, w_i8.t()), n1 - 2 * k1),
                 f"{mid}: torch._int_mm != n - 2*binary_gemm_hd")
-        lib_ms = device_ms(lambda: torch._int_mm(x_i8, w_i8.t()))
-        k1_call = time_ms(lambda: binary_gemm.binary_gemm_hd(xp, w1), 100)
-        k1_ms = device_ms(lambda: binary_gemm.binary_gemm_hd(xp, w1))
-        k1_plain_ms = time_ms(
-            lambda: binary_gemm.binary_gemm_hd_plain(xp, w1), 3)
-        pairs = b * n_hidden * kw0
-        bound, by = card.bound_ms(pairs, 2 * pairs,
-                                  4 * (b * kw0 + n_hidden * kw0 + b * n_hidden))
-        report["binary_gemm_hd"]["per_model"][mid] = dict(
-            shape=f"x[{b},{kw0}] w[{n_hidden},{kw0}]", ms=k1_ms,
-            call_ms=k1_call,
-            plain_ms=k1_plain_ms, bound_ms=bound, bound_by=by,
-            library_ms=lib_ms,
-            max_abs_err=int((k1 - k1_plain).abs().max()))
+        report["binary_gemm_hd"]["per_model"][mid] = gemm_row(
+            card, xp, w1,
+            device_ms(lambda: binary_gemm.binary_gemm_hd(xp, w1)),
+            time_ms(lambda: binary_gemm.binary_gemm_hd(xp, w1), 100),
+            time_ms(lambda: binary_gemm.binary_gemm_hd_plain(xp, w1), 3),
+            device_ms(lambda: torch._int_mm(x_i8, w_i8.t())),
+            int((k1 - k1_plain).abs().max()))
 
         # kernel 2: the head vote, all three threshold forms
         errs = []
-        for form, t, s in (("int", thr, None), ("float", thr_f, None),
-                           ("sampled", thr, samples)):
+        for form, t, s in forms:
             got = cam_search.cam_vote(q, head, t, thr_samples=s)
             want = cam_search.cam_vote_plain(q, head, t, thr_samples=s)
             require(torch.equal(got, want), f"{mid}: cam_vote[{form}] != plain")
@@ -301,8 +509,7 @@ def run(dev: torch.device, b_main: int, batches, card: Card,
         # kernel 3: the whole net, all three threshold forms
         args = (xp, pipe.layer_ws, pipe.layer_cs, pipe.layer_n_bits, head)
         errs = []
-        for form, t, s in (("int", thr, None), ("float", thr_f, None),
-                           ("sampled", thr, samples)):
+        for form, t, s in forms:
             got = fused_mlp.fused_mlp_votes(*args, t, bias_cells=bias,
                                             thr_samples=s)
             want = fused_mlp.fused_mlp_votes_plain(*args, t, bias_cells=bias,
@@ -326,8 +533,8 @@ def run(dev: torch.device, b_main: int, batches, card: Card,
             call_ms=k3_call,
             plain_ms=k3_plain_ms, bound_ms=bound, bound_by=by,
             library_ms=None, max_abs_err=max(errs))
-        for k, r in report.items():
-            row = r["per_model"][mid]
+        for k in ("binary_gemm_hd", "cam_vote", "fused_mlp_votes"):
+            row = report[k]["per_model"][mid]
             print(f"  {mid:5s} {k:16s} {row['shape']}: kernel "
                   f"{row['ms']} ms (call {row['call_ms']:.4f} ms), plain "
                   f"{row['plain_ms']:.3f} ms, bound "
@@ -336,7 +543,7 @@ def run(dev: torch.device, b_main: int, batches, card: Card,
 
     # ------------------- end to end: one run() call, input already on dev
     e2e = {}
-    for mid, m in models.items():
+    for mid, m in {**models, **cnns}.items():
         for bsz in batches:
             xd = torch.from_numpy(m["x"][:bsz]).to(dev)
             for sname, spec in (("votes", InferenceSpec()),
@@ -344,8 +551,17 @@ def run(dev: torch.device, b_main: int, batches, card: Card,
                 ms = time_ms(lambda: m["gpu"].run(xd, spec), 20)
                 e2e[f"{mid}/B={bsz}/{sname}"] = dict(ms=ms,
                                                      inf_per_s=bsz / ms * 1e3)
-                print(f"  run {mid:5s} B={bsz:5d} {sname:10s}: {ms:.4f} ms "
+                print(f"  run {mid:9s} B={bsz:5d} {sname:10s}: {ms:.4f} ms "
                       f"-> {bsz / ms * 1e3:,.0f} inf/s")
+    # the CNN input layer alone (InputEncoding.pack) at the largest batch
+    for mid, m in cnns.items():
+        xd = torch.from_numpy(m["x"]).to(dev)
+        pack = m["gpu"].conv.pack
+        ms, dms = time_ms(lambda: pack(xd), 20), device_ms(lambda: pack(xd),
+                                                           iters=20)
+        e2e[f"{mid}/B={b_main}/pack"] = dict(ms=ms, device_ms=dms)
+        print(f"  pack {mid:9s} B={b_main:5d}: {ms:.4f} ms "
+              f"(device {dms} ms)")
     print(json.dumps({"e2e": e2e, "card": smi}))
 
     # ------------------------------------------------------ the main path
@@ -353,27 +569,29 @@ def run(dev: torch.device, b_main: int, batches, card: Card,
              "argmax": InferenceSpec(reduction="argmax"),
              "cumulative": InferenceSpec(cumulative=True)}
     counted = (binary_gemm.binary_gemm_hd, cam_search.cam_vote,
-               fused_mlp.fused_mlp_votes)
+               fused_mlp.fused_mlp_votes, fused_conv.fused_conv_votes,
+               fused_conv.conv_stage_packed)
+    served_models = {**models, **cnns}
     for fn in counted:
         fn.launches = 0
     results = {}
     t0 = time.perf_counter()
-    for mid, m in models.items():
+    for mid, m in served_models.items():
         for bsz in batches:
             for sname, spec in specs.items():
                 results[(mid, bsz, sname)] = m["gpu"].run(m["x"][:bsz], spec)
     policy = BatchingPolicy(max_batch=256, max_wait_us=500)
     served = {}
     server = PicBnnServer(policy, devices=None if on_card else [dev])
-    for mid, m in models.items():
+    for mid, m in served_models.items():
         server.register(mid, m["gpu"])
     server.warmup()
     with server:
         singles = {mid: [server.submit(mid, m["x"][i]) for i in range(100)]
-                   for mid, m in models.items()}
+                   for mid, m in served_models.items()}
         bursts = {mid: server.submit_many(mid, m["x"][100:400])
-                  for mid, m in models.items()}
-        for mid in models:
+                  for mid, m in served_models.items()}
+        for mid in served_models:
             served[mid] = np.concatenate(
                 [np.stack([h.result(timeout=60).votes
                            for h in singles[mid]]),
@@ -385,7 +603,8 @@ def run(dev: torch.device, b_main: int, batches, card: Card,
     stats = server.stats()
     print(f"main path: {main_s:.2f} s, launches {launches}")
     print(stats.summary())
-    for fn in (binary_gemm.binary_gemm_hd, fused_mlp.fused_mlp_votes):
+    for fn in (binary_gemm.binary_gemm_hd, fused_mlp.fused_mlp_votes,
+               fused_conv.fused_conv_votes, fused_conv.conv_stage_packed):
         # (a CPU rehearsal launches nothing)
         require(launches[fn.__name__] > 0 or not on_card,
                 f"{fn.__name__} was not launched on the main path")
@@ -402,11 +621,12 @@ def run(dev: torch.device, b_main: int, batches, card: Card,
     print(f"ops.cam_vote path: launches {op_launches}")
     require(op_launches["cam_vote"] > 0 or not on_card,
             "cam_vote was not launched on its path (ops.cam_vote)")
-    require(stats.n_requests == 2 * 400,
-            f"server answered {stats.n_requests} of {2 * 400} requests")
+    n_req = sum(len(m["x"][:400]) for m in served_models.values())
+    require(stats.n_requests == n_req,
+            f"server answered {stats.n_requests} of {n_req} requests")
 
     # -------------------------------------------- correctness of the output
-    for mid, m in models.items():
+    for mid, m in served_models.items():
         for bsz in batches:
             for sname, spec in specs.items():
                 got = results[(mid, bsz, sname)]
@@ -417,15 +637,20 @@ def run(dev: torch.device, b_main: int, batches, card: Card,
                 require(torch.equal(got.cpu(), want),
                         f"{mid} B={bsz} {sname}: card != CPU pipeline")
         x100 = torch.from_numpy(m["x"][:100])
-        h = torch.where(bnn.folded_forward_exact(m["folded"][:-1], x100) >= 0,
-                        1.0, -1.0)
-        oracle = ensemble.votes_fused(m["cpu"].head, h)
+        if mid in cnns:  # the unpacked ±1 CNN oracle
+            oracle = ref.conv_votes_ref(m["folded"], m["cpu"].head, x100,
+                                        m["cfg"].encoding, m["cfg"].side)
+        else:  # folded_forward_exact + votes_fused
+            h = torch.where(
+                bnn.folded_forward_exact(m["folded"][:-1], x100) >= 0,
+                1.0, -1.0)
+            oracle = ensemble.votes_fused(m["cpu"].head, h)
+            require(torch.equal(
+                op_votes[mid].cpu(),
+                ensemble.votes_fused(m["cpu"].head, m["hidden_pm1"].cpu())),
+                f"{mid}: ops.cam_vote != votes_fused")
         require(torch.equal(results[(mid, 100, "votes")].cpu(), oracle),
-                f"{mid}: votes != folded_forward_exact + votes_fused oracle")
-        require(torch.equal(
-            op_votes[mid].cpu(),
-            ensemble.votes_fused(m["cpu"].head, m["hidden_pm1"].cpu())),
-            f"{mid}: ops.cam_vote != votes_fused")
+                f"{mid}: votes != the digital oracle")
         direct = m["gpu"].run(m["x"][:400], specs["votes"]).cpu().numpy()
         require(np.array_equal(served[mid], direct),
                 f"{mid}: served votes != direct run")
@@ -435,7 +660,7 @@ def run(dev: torch.device, b_main: int, batches, card: Card,
     # ------------------------------------------------------------ summary
     line = []
     for name, r in report.items():
-        main = r["per_model"]["hg"]
+        main = r["per_model"]["hg_cnn" if "conv" in name else "hg"]
         op_path = name == "cam_vote"  # not on the main path (phase 3)
         line.append(dict(
             name=name, route="cuda", source=SOURCES[name],

@@ -14,28 +14,46 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.binarize import words_to_torch
+from repro_torch.core.binarize import InputEncoding, words_to_torch
 from repro_torch.core.bnn import FoldedLayer, Params
+from repro_torch.core.convnet import FoldedConvLayer, is_conv_layer
 
 
-def folded_from_jax(layers: Sequence[Any]) -> list[FoldedLayer]:
-    """The reference's folded layers (anything with `.weights_pm1` [out, in]
-    ±1 and `.c` [out]) -> the port's `FoldedLayer`s."""
-    return [
-        FoldedLayer(
-            weights_pm1=np.asarray(l.weights_pm1).astype(np.int8),
-            c=np.asarray(l.c).astype(np.int64),
-        )
-        for l in layers
-    ]
+def folded_from_jax(layers: Sequence[Any]) -> list:
+    """The reference's folded layers -> the port's.
+
+    A layer with [out, in] ±1 rows and `.c` [out] becomes a `FoldedLayer`;
+    a conv layer ([c_out, k, k, c_in] filters, `.c`, `.stride`) becomes a
+    `FoldedConvLayer` with its stride.
+    """
+    out = []
+    for l in layers:
+        w = np.asarray(l.weights_pm1).astype(np.int8)
+        c = np.asarray(l.c).astype(np.int64)
+        if is_conv_layer(l):
+            out.append(FoldedConvLayer(weights_pm1=w, c=c,
+                                       stride=int(l.stride)))
+        else:
+            out.append(FoldedLayer(weights_pm1=w, c=c))
+    return out
+
+
+def encoding_from_jax(encoding: Any) -> InputEncoding:
+    """The reference's `binarize.InputEncoding` -> the port's."""
+    return InputEncoding(kind=str(encoding.kind), width=int(encoding.width))
 
 
 def params_from_jax(tree: Params) -> Params:
-    """Trained `bnn` params ({"layers": [{"w", "gamma", "beta", "mean",
-    "var"}, ...]}, leaves jax or numpy arrays) -> the same tree of numpy
-    arrays, ready for `bnn.fold`."""
-    return {"layers": [{k: np.asarray(v) for k, v in layer.items()}
-                       for layer in tree["layers"]]}
+    """Trained parameters (leaves jax or numpy arrays) -> the same tree of
+    numpy arrays, ready for `bnn.fold` or `convnet.fold_cnn`.
+
+    The MLP's {"layers": [{"w", "gamma", "beta", "mean", "var"}, ...]} and
+    the CNN's {"conv": [...], "fc": [...]} alike: every top-level entry
+    is a list of per-layer dictionaries.
+    """
+    return {key: [{k: np.asarray(v) for k, v in layer.items()}
+                  for layer in layers]
+            for key, layers in tree.items()}
 
 
 def rows_from_jax(words, device=None) -> torch.Tensor:

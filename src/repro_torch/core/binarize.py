@@ -1,5 +1,6 @@
-"""Bit packing and Hamming-distance primitives (port of
-`repro/core/binarize.py`, inference half).
+"""Bit packing, Hamming-distance primitives and the binary input layer
+(port of `repro/core/binarize.py`, inference half: `sign_ste` comes with
+the training slice).
 
 Conventions (paper Sec. II-B):
   logical bit b in {0, 1}  <->  value v = 2b - 1 in {-1, +1}
@@ -15,6 +16,8 @@ ordinary bit.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -140,3 +143,150 @@ def words_to_torch(words: np.ndarray, device=None) -> torch.Tensor:
     elif a.dtype != np.int32:
         raise TypeError(f"packed words must be uint32/int32, got {a.dtype}")
     return torch.from_numpy(a.copy()).to(device)
+
+
+# ---------------------------------------------------------------------------
+# Binary input layer: [0, 1] intensity -> multi-bit binary codes
+# ---------------------------------------------------------------------------
+# The end-to-end claim binarizes the INPUT layer too: each [0, 1] intensity
+# expands into `width` binary channels, so the first (binary) conv layer
+# sees a graded input while the whole network computes only on bits.
+
+
+def thermometer_thresholds(width: int) -> np.ndarray:
+    """The thermometer levels (t+1)/(width+1), t < width, in float32.
+
+    Computed with numpy's IEEE float32 division, exactly as the reference
+    computes them, so that a pixel on a level boundary encodes the same
+    way in both packages (a division by a scalar on the card may take a
+    reciprocal and round differently).
+    """
+    if width < 1:
+        raise ValueError(f"thermometer width must be >= 1, got {width}")
+    return (np.arange(width, dtype=np.float32) + np.float32(1.0)) \
+        / np.float32(width + 1.0)
+
+
+def thermometer_bits(x01, width: int) -> torch.Tensor:
+    """[0,1] intensities -> thermometer code, [..., width] {0,1} uint8.
+
+    Bit t fires iff x >= (t+1)/(width+1): the code is monotone, so the
+    Hamming distance between two codes is the quantized intensity gap.
+    width=1 is the plain x >= 0.5 binarization.
+    """
+    x = torch.as_tensor(x01).to(torch.float32)
+    thr = torch.from_numpy(thermometer_thresholds(width)).to(x.device)
+    return (x[..., None] >= thr).to(torch.uint8)
+
+
+def thermometer_decode(bits) -> torch.Tensor:
+    """Thermometer code -> intensity estimate in [0,1] (level midpoint)."""
+    bits = torch.as_tensor(bits)
+    width = bits.shape[-1]
+    k = bits.to(torch.int32).sum(-1).to(torch.float32)
+    return (k + 0.5) / (width + 1.0)
+
+
+def _bitplane_levels(x01, width: int) -> torch.Tensor:
+    """round(x * (2^width - 1)) as int64 (round half to even, as jnp.round)."""
+    if width < 1:
+        raise ValueError(f"bit-plane width must be >= 1, got {width}")
+    x = torch.as_tensor(x01).to(torch.float32)
+    return torch.round(x * ((1 << width) - 1)).to(torch.int64)
+
+
+def bitplane_bits(x01, width: int) -> torch.Tensor:
+    """[0,1] intensities -> binary expansion, [..., width] {0,1} uint8.
+
+    Quantizes to round(x * (2^width - 1)) and emits the bit planes
+    LSB-first.  Denser than thermometer but not Hamming-faithful.
+    """
+    q = _bitplane_levels(x01, width)
+    shifts = torch.arange(width, dtype=torch.int64, device=q.device)
+    return ((q[..., None] >> shifts) & 1).to(torch.uint8)
+
+
+def bitplane_decode(bits) -> torch.Tensor:
+    """Bit planes (LSB-first) -> intensity in [0,1]; exact on the grid."""
+    bits = torch.as_tensor(bits)
+    width = bits.shape[-1]
+    weights = (1 << torch.arange(width, dtype=torch.int64,
+                                 device=bits.device)).to(torch.float32)
+    return (bits.to(torch.float32) * weights).sum(-1) / float((1 << width) - 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class InputEncoding:
+    """How raw [0,1] pixels become the binary input channels of a CNN.
+
+    kind  : "thermometer" (Hamming-faithful, width+1 levels — the
+            default), "bitplane" (2^width levels, not Hamming-faithful),
+            or "sign" (width must be 1; plain x >= 0.5).
+    width : binary channels emitted per pixel (= C_in of the first conv
+            layer).
+    """
+
+    kind: str = "thermometer"
+    width: int = 8
+
+    def __post_init__(self):
+        if self.kind not in ("thermometer", "bitplane", "sign"):
+            raise ValueError(f"unknown input encoding kind {self.kind!r}")
+        if self.kind == "sign" and self.width != 1:
+            raise ValueError("sign encoding is width-1 by definition")
+        if self.width < 1:
+            raise ValueError(f"encoding width must be >= 1: {self.width}")
+
+    def encode_bits(self, x01) -> torch.Tensor:
+        """[0,1] intensities [...] -> {0,1} uint8 bits [..., width]."""
+        if self.kind == "bitplane":
+            return bitplane_bits(x01, self.width)
+        if self.kind == "sign":
+            x = torch.as_tensor(x01).to(torch.float32)
+            return (x[..., None] >= 0.5).to(torch.uint8)
+        return thermometer_bits(x01, self.width)
+
+    def encode_pm1(self, x01, dtype=torch.float32) -> torch.Tensor:
+        """[0,1] intensities [...] -> ±1 values [..., width]."""
+        return from_bits(self.encode_bits(x01), dtype)
+
+    def pack(self, x01) -> torch.Tensor:
+        """[0,1] intensities [...] -> packed int32 words [..., Cw].
+
+        The same words as `pack_bits(encode_bits(x01))`, bit 31 included,
+        built as OR_t (bit_t << t) straight in int32: no [..., width] bit
+        tensor, no padding to 32 bits and no int64.  That route pads every
+        pixel to 32 bits and widens them to int64: 4096 x 64 x 64 x 32 x 8
+        bytes = 4.3 GB per temporary for a batch of 4096 Hand-Gesture
+        images; this one holds one int32 word per pixel at a time.
+        """
+        x = torch.as_tensor(x01).to(torch.float32)
+        if self.kind == "bitplane":
+            q = _bitplane_levels(x, self.width)
+            q = q & ((1 << self.width) - 1)
+            words = [(q >> (WORD * w)) & 0xFFFFFFFF
+                     for w in range(packed_width(self.width))]
+            words = [torch.where(v >= 1 << 31, v - _TWO32, v).to(torch.int32)
+                     for v in words]
+            return torch.stack(words, dim=-1)
+        # Python floats holding the float32 levels: compared exactly, and
+        # with no host-to-device copy (which would synchronise the stream)
+        thr = ([0.5] if self.kind == "sign"
+               else thermometer_thresholds(self.width).tolist())
+        words = []
+        for w in range(packed_width(self.width)):
+            word = torch.zeros(x.shape, dtype=torch.int32, device=x.device)
+            for t in range(WORD * w, min(self.width, WORD * (w + 1))):
+                word |= (x >= thr[t]).to(torch.int32) << (t - WORD * w)
+            words.append(word)
+        return torch.stack(words, dim=-1)
+
+
+def random_pm1(generator: torch.Generator, shape,
+               dtype=torch.float32) -> torch.Tensor:
+    """Uniform random ±1 tensor (fair coin per element) from `generator`,
+    on the generator's device.  Matches the reference in distribution
+    only: a torch generator does not reproduce `jax.random` streams."""
+    bits = torch.randint(0, 2, tuple(shape), generator=generator,
+                         device=generator.device, dtype=torch.uint8)
+    return from_bits(bits, dtype)

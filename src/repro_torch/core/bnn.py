@@ -86,18 +86,31 @@ def fold(params: Params, cfg: MLPConfig) -> list[FoldedLayer]:
     for layer in params["layers"]:
         w = np.sign(np.asarray(layer["w"]))
         w = np.where(w == 0, 1.0, w).T  # [out, in], sign(0) -> +1
-        gamma = np.asarray(layer["gamma"], np.float64)
-        beta = np.asarray(layer["beta"], np.float64)
-        mu = np.asarray(layer["mean"], np.float64)
-        sigma = np.sqrt(np.asarray(layer["var"], np.float64) + cfg.bn_eps)
-        flip = gamma < 0
-        w = np.where(flip[:, None], -w, w)
-        thresh = mu - beta * sigma / np.where(gamma == 0, 1e-12, gamma)
-        thresh = np.where(flip, -thresh, thresh)
-        c = np.round(-thresh).astype(np.int64)
-        c = parity_adjust_c(c, w.shape[1], cfg.bias_cells)
-        folded.append(FoldedLayer(weights_pm1=w.astype(np.int8), c=c))
+        w, c = fold_bn(w, layer, cfg.bn_eps, w.shape[1], cfg.bias_cells)
+        folded.append(FoldedLayer(weights_pm1=w, c=c))
     return folded
+
+
+def fold_bn(w_rows: np.ndarray, layer: Params, eps: float, n_bits: int,
+            bias_cells: int) -> tuple[np.ndarray, np.ndarray]:
+    """The Eq.-3 BN collapse shared by `fold` and `convnet.fold_cnn`:
+    ±1 rows [out, ...] + BN stats -> (int8 rows, parity-adjusted C).
+
+    Rows flip where gamma < 0; C = round(beta*sigma/|gamma| - mu'),
+    parity-adjusted against the dot width `n_bits`.
+    """
+    gamma = np.asarray(layer["gamma"], np.float64)
+    beta = np.asarray(layer["beta"], np.float64)
+    mu = np.asarray(layer["mean"], np.float64)
+    sigma = np.sqrt(np.asarray(layer["var"], np.float64) + eps)
+    flip = gamma < 0
+    w_rows = np.where(flip.reshape((-1,) + (1,) * (w_rows.ndim - 1)),
+                      -w_rows, w_rows)
+    thresh = mu - beta * sigma / np.where(gamma == 0, 1e-12, gamma)
+    thresh = np.where(flip, -thresh, thresh)
+    c = parity_adjust_c(np.round(-thresh).astype(np.int64), n_bits,
+                        bias_cells)
+    return w_rows.astype(np.int8), c
 
 
 def folded_forward_exact(folded: Sequence[FoldedLayer],

@@ -22,7 +22,7 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("binary_gemm", "cam_search", "fused_mlp")
+SOURCES = ("binary_gemm", "cam_search", "fused_mlp", "fused_conv")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -43,6 +43,12 @@ _SIGNATURES = {
             [_VOID_P, _INT, _INT, _INT] + [_VOID_P] * 5
             + [_VOID_P, _INT, _INT, _INT, _VOID_P, _INT, _INT, _VOID_P,
                _VOID_P, _INT, _VOID_P]
+        ),
+    },
+    "fused_conv": {
+        "fused_conv_launch": (
+            [_VOID_P, _INT, _INT] + [_VOID_P] * 3 + [_INT] + [_VOID_P] * 6
+            + [_INT] * 7 + [_VOID_P, _INT, _INT] + [_VOID_P] * 3
         ),
     },
 }

@@ -40,12 +40,8 @@ SMEM_LIMIT = 232448  # bytes of shared memory a block may use on an H100
 def _validate(x_packed, layer_ws, layer_cs, layer_n_bits, head_rows,
               bias_cells: int):
     """The reference's shape guards, as ValueErrors; returns int32 C's."""
-    if len(layer_ws) != len(layer_cs) or len(layer_ws) != len(layer_n_bits):
-        raise ValueError("layer_ws / layer_cs / layer_n_bits length mismatch")
     _check_words("x_packed", x_packed)
-    _check_words("head_rows", head_rows)
-    for w in layer_ws:
-        _check_words("layer weight rows", w)
+    cs = check_tail(layer_ws, layer_cs, layer_n_bits, head_rows, bias_cells)
     # the input must line up with its first operand: a head-only query
     # packed WITHOUT the bias drive bits would otherwise truncate the
     # distance loop and return wrong votes
@@ -56,6 +52,18 @@ def _validate(x_packed, layer_ws, layer_cs, layer_n_bits, head_rows,
             f"operand's packed width {first_kw}; for a head-only net the "
             "query must include the bias drive bits (cam.query_with_bias)"
         )
+    return cs
+
+
+def check_tail(layer_ws, layer_cs, layer_n_bits, head_rows,
+               bias_cells: int) -> list:
+    """Shape guards of the FC layers and head (shared with kernel 4);
+    returns the C's as contiguous int32 tensors on their rows' devices."""
+    if len(layer_ws) != len(layer_cs) or len(layer_ws) != len(layer_n_bits):
+        raise ValueError("layer_ws / layer_cs / layer_n_bits length mismatch")
+    _check_words("head_rows", head_rows)
+    for w in layer_ws:
+        _check_words("layer weight rows", w)
     cs = []
     for i, (w, c, n_bits) in enumerate(zip(layer_ws, layer_cs, layer_n_bits)):
         c = torch.as_tensor(c, device=w.device).to(torch.int32)
@@ -77,6 +85,18 @@ def _validate(x_packed, layer_ws, layer_cs, layer_n_bits, head_rows,
     if not layer_ws and bias_cells > head_rows.shape[1] * WORD:
         raise ValueError("bias_cells exceed the head row width")
     return cs
+
+
+def tail_arrays(ws, cs, layer_n_bits) -> tuple:
+    """The FC layers as the launchers read them (picbnn.cuh `fill_tail`):
+    C arrays of row pointers, C pointers, n_bits, n_out and words per row.
+    The caller keeps the tuple alive across the launch."""
+    k = max(len(ws), 1)
+    return ((ctypes.c_void_p * k)(*[w.data_ptr() for w in ws]),
+            (ctypes.c_void_p * k)(*[c.data_ptr() for c in cs]),
+            (ctypes.c_int * k)(*layer_n_bits),
+            (ctypes.c_int * k)(*[w.shape[0] for w in ws]),
+            (ctypes.c_int * k)(*[w.shape[1] for w in ws]))
 
 
 def fused_mlp_votes_plain(x_packed, layer_ws, layer_cs, layer_n_bits,
@@ -177,21 +197,14 @@ def fused_mlp_votes(x_packed: torch.Tensor,
     if b == 0:
         return out
     x, head = x_packed.contiguous(), head_rows.contiguous()
-    k = max(n_layers, 1)
-    w_ptrs = (ctypes.c_void_p * k)(*[w.data_ptr() for w in ws])
-    c_ptrs = (ctypes.c_void_p * k)(*[c.data_ptr() for c in cs])
-    n_bits = (ctypes.c_int * k)(*layer_n_bits)
-    n_out = (ctypes.c_int * k)(*[w.shape[0] for w in ws])
-    kw = (ctypes.c_int * k)(*kws)
-    addr = ctypes.addressof
+    tail = tail_arrays(ws, cs, layer_n_bits)
     lib = _build.library("fused_mlp")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fused_mlp_votes_launch(
-            x.data_ptr(), b, kw0, n_layers, addr(w_ptrs), addr(c_ptrs),
-            addr(n_bits), addr(n_out), addr(kw), head.data_ptr(), n_classes,
-            kw_head, bias_cells, thr.data_ptr(), mode, p, samples_ptr,
-            out.data_ptr(), bq, stream,
+            x.data_ptr(), b, kw0, n_layers, *map(ctypes.addressof, tail),
+            head.data_ptr(), n_classes, kw_head, bias_cells, thr.data_ptr(),
+            mode, p, samples_ptr, out.data_ptr(), bq, stream,
         )
     _build.check(lib, err, "fused_mlp_votes")
     fused_mlp_votes.launches += 1

@@ -1,10 +1,11 @@
-"""End-to-end deployed-BNN inference pipeline, MLP branch (port of
-`repro/pipeline.py`).
+"""End-to-end deployed-BNN inference pipeline (port of `repro/pipeline.py`,
+noiseless).
 
 `compile_pipeline(folded, ens_cfg)` turns a folded binary MLP (a list of
-`bnn.FoldedLayer`) plus an Algorithm-1 ensemble config into a batch
-classifier on one device, driven by a declarative request spec
-(`repro_torch.spec.InferenceSpec`):
+`bnn.FoldedLayer`), or a binary CNN (a prefix of
+`convnet.FoldedConvLayer` before them), plus an Algorithm-1 ensemble
+config into a batch classifier on one device, driven by a declarative
+request spec (`repro_torch.spec.InferenceSpec`):
 
     pipe = compile_pipeline(folded, EnsembleConfig())          # on the card
     votes = pipe.run(x_pm1, InferenceSpec())                    # [B, C] int32
@@ -15,13 +16,22 @@ The pipeline runs on the card unless asked otherwise: `device=None`
 means CUDA, and without CUDA it raises; pass `device="cpu"` to run the
 plain PyTorch versions of the kernels on the CPU.
 
-Votes and argmax go through `kernels.fused_mlp.fused_mlp_votes`: one
-launch of kernel 3 per batch, hidden activations resident in shared
-memory.  The noiseless cumulative staircase needs the head distances
-[B, C], so it takes `head_hd`, the twin of the reference's
-`_head_hd_xla`: kernel 1 (`kernels.ops.binary_gemm_hd`) once per hidden
-layer and once for the head, with sign and repack as PyTorch elementwise
-ops between them.  Both are bit-exact equal to the JAX reference.
+An MLP takes ±1 activations [B, n_in].  Votes and argmax go through
+`kernels.fused_mlp.fused_mlp_votes`: one launch of kernel 3 per batch,
+hidden activations resident in shared memory.  The noiseless cumulative
+staircase needs the head distances [B, C], so it takes `head_hd`, the
+twin of the reference's `_head_hd_xla`: kernel 1
+(`kernels.ops.binary_gemm_hd`) once per hidden layer and once for the
+head, with sign and repack as PyTorch elementwise ops between them.
+
+A CNN (`image_side=`) takes raw [0,1] pixels [B, side*side], which the
+binary input layer (`image_encoding`, thermometer by default) packs
+into channel words.  Votes and argmax go through
+`kernels.fused_conv.fused_conv_votes` (kernel 4: conv stack, flatten,
+FC layers and vote in one launch); the cumulative staircase runs
+`kernels.fused_conv.conv_stage_packed` (kernel 4 stopped after the
+flatten) and then `head_hd`.  Every path is bit-exact equal to the JAX
+reference.
 
 Batch-size bucketing: inputs are zero-padded to the next power-of-two
 bucket (floor `min_bucket`), and results are trimmed back; rows are
@@ -30,8 +40,8 @@ meets O(log B) distinct shapes (`warmup` covers them).
 
 What waits for later slices, and how it fails: the silicon-noise specs
 raise ValueError (as the reference does for a pipeline compiled without
-noise); `compile_pipeline(noise=...)`, convolutional graphs
-(`image_side=`, conv layers) and `donate=` raise NotImplementedError.
+noise); `compile_pipeline(noise=...)` and `donate=` raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -45,8 +55,9 @@ import torch
 
 from repro_torch.core import binarize
 from repro_torch.core.cam import query_with_bias
+from repro_torch.core.convnet import is_conv_layer
 from repro_torch.core.ensemble import CAMEnsembleHead, EnsembleConfig, build_head
-from repro_torch.kernels import fused_mlp, ops
+from repro_torch.kernels import fused_conv, fused_mlp, ops
 from repro_torch.spec import InferenceSpec
 
 
@@ -123,9 +134,38 @@ def head_hd(x_packed, layer_ws, layer_cs, layer_n_bits, head_rows,
     return ops.binary_gemm_hd(q, head_rows)
 
 
+@dataclasses.dataclass(frozen=True)
+class ConvFront:
+    """The conv stack of a CNN pipeline: the binary input layer and the
+    packed conv operands on the pipeline's device."""
+
+    encoding: binarize.InputEncoding
+    side: int  # square input image side
+    metas: tuple  # fused_conv.ConvMeta per conv layer
+    ws: tuple  # per conv layer [c_out, k*k*Cw] int32 tap-major rows
+    cs: tuple  # per conv layer [c_out] int32 folded constants
+    head_direct: bool  # no FC hidden layer: the flatten feeds the head
+
+    def pack(self, x01: torch.Tensor) -> torch.Tensor:
+        """[B, side*side] pixels -> [B, side*side*Cw0] packed words."""
+        words = self.encoding.pack(x01)
+        return words.reshape(words.shape[0], -1)
+
+    def maps(self, x_packed: torch.Tensor) -> torch.Tensor:
+        """[B, side*side*Cw0] -> the NHWC maps [B, side, side, Cw0]."""
+        return x_packed.reshape(-1, self.side, self.side,
+                                self.metas[0].cw_in)
+
+    def to(self, device) -> "ConvFront":
+        """The same stack with its operands on `device`."""
+        return dataclasses.replace(
+            self, ws=tuple(w.to(device) for w in self.ws),
+            cs=tuple(c.to(device) for c in self.cs))
+
+
 @dataclasses.dataclass
 class CompiledPipeline:
-    """A batch classifier for one deployed binary MLP on one device.
+    """A batch classifier for one deployed binary MLP or CNN on one device.
 
     The execution surface is `run(x, spec)` / `run_packed(x_packed,
     spec)`: one program is built and cached per distinct `InferenceSpec`
@@ -141,8 +181,9 @@ class CompiledPipeline:
     n_classes: int
     device: torch.device
     min_bucket: int
-    head_only: bool  # no hidden layers: input feeds the CAM head directly
+    head_only: bool  # MLP with no hidden layers: input feeds the CAM head
     max_bucket: Optional[int] = None  # serving cap on the bucket grid
+    conv: Optional[ConvFront] = None  # the conv stack of a CNN
     _programs: dict = dataclasses.field(default_factory=dict, repr=False)
 
     # ------------------------------------------------------------------
@@ -166,7 +207,8 @@ class CompiledPipeline:
             keys=None) -> torch.Tensor:
         """Execute one declarative inference request on a raw batch.
 
-        x    : [B, n_in] ±1 activations (a tensor, on any device, or an
+        x    : [B, n_in] ±1 activations for an MLP, [B, side*side] raw
+               [0,1] pixels for a CNN (a tensor, on any device, or an
                array); moved to the pipeline's device.
         spec : what to run.  key / keys belong to the noisy specs and are
                rejected here.
@@ -182,7 +224,8 @@ class CompiledPipeline:
 
     def run_packed(self, x_packed: torch.Tensor, spec: InferenceSpec, *,
                    key=None, keys=None) -> torch.Tensor:
-        """`run` for an already-packed input batch [B, Kw0] (int32)."""
+        """`run` for an already-packed input batch [B, Kw0] (int32; a CNN's
+        is [B, side*side*Cw0], the channel-packed pixels)."""
         prog = self.program(spec)  # noise capability check happens here
         if key is not None or keys is not None:
             raise ValueError(
@@ -196,15 +239,30 @@ class CompiledPipeline:
     # programs
     # ------------------------------------------------------------------
     def _votes(self, x_packed: torch.Tensor) -> torch.Tensor:
+        head, conv = self.head, self.conv
+        if conv is not None:
+            return fused_conv.fused_conv_votes(
+                conv.maps(x_packed), conv.ws, conv.cs, conv.metas,
+                self.layer_ws, self.layer_cs, self.layer_n_bits,
+                head.cam.rows_packed, head.thresholds,
+                bias_cells=head.bias_cells, head_direct=conv.head_direct,
+            )
         return fused_mlp.fused_mlp_votes(
             x_packed, self.layer_ws, self.layer_cs, self.layer_n_bits,
-            self.head.cam.rows_packed, self.head.thresholds,
-            bias_cells=self.head.bias_cells,
+            head.cam.rows_packed, head.thresholds,
+            bias_cells=head.bias_cells,
         )
 
     def _staircase(self, x_packed: torch.Tensor) -> torch.Tensor:
         # the exact noiseless staircase: per-pass match indicators of the
         # deterministic compare, summed cumulatively over passes
+        conv = self.conv
+        if conv is not None:  # the flattened conv features, then FC/head
+            x_packed = fused_conv.conv_stage_packed(
+                conv.maps(x_packed), conv.ws, conv.cs, conv.metas,
+                bias_cells=self.head.bias_cells if conv.head_direct else 0,
+                kw_q=(self.layer_ws[0] if self.layer_ws
+                      else self.head.cam.rows_packed).shape[1])
         hd = head_hd(x_packed, self.layer_ws, self.layer_cs,
                      self.layer_n_bits, self.head.cam.rows_packed,
                      self.head.bias_cells)
@@ -227,10 +285,12 @@ class CompiledPipeline:
     # ------------------------------------------------------------------
     # shared glue (packing / bucketing / trimming)
     # ------------------------------------------------------------------
-    def _pack_input(self, x_pm1: torch.Tensor) -> torch.Tensor:
+    def _pack_input(self, x: torch.Tensor) -> torch.Tensor:
+        if self.conv is not None:
+            return self.conv.pack(x)
         if self.head_only:
-            return query_with_bias(x_pm1, self.head.bias_cells)
-        return binarize.pack_pm1(x_pm1)
+            return query_with_bias(x, self.head.bias_cells)
+        return binarize.pack_pm1(x)
 
     def _bucketed(self, x_packed: torch.Tensor):
         b = x_packed.shape[0]
@@ -258,7 +318,9 @@ class CompiledPipeline:
         source hash) and loads them, and the caching allocator sizes its
         blocks, so none of that lands in served latencies.  Returns
         {(spec, bucket): seconds}, each ended by a device synchronise.
-        specs defaults to the plain vote program.
+        specs defaults to the plain vote program.  The dummy batches are
+        all ones: ±1 activations for an MLP, full-intensity pixels for a
+        CNN.
         """
         specs = (InferenceSpec(),) if specs is None else specs
         for spec in specs:  # capability check before any work
@@ -291,6 +353,7 @@ class CompiledPipeline:
             head=self.head.to(dev),
             layer_ws=tuple(w.to(dev) for w in self.layer_ws),
             layer_cs=tuple(c.to(dev) for c in self.layer_cs),
+            conv=None if self.conv is None else self.conv.to(dev),
             device=dev,
             _programs={},
         )
@@ -307,62 +370,111 @@ def compile_pipeline(
     params=None,
     donate: bool = False,
     image_side: int | None = None,
-    image_encoding=None,
+    image_encoding: binarize.InputEncoding | None = None,
 ) -> CompiledPipeline:
-    """Compile a folded binary MLP + ensemble head into a batch classifier.
+    """Compile a folded binary MLP or CNN + ensemble head into a batch
+    classifier.
 
     folded  : `bnn.fold` output (or any layers with `.weights_pm1` [out,
               in] ±1 and `.c` [out]) — hidden layers + the output layer.
+              May start with a prefix of conv layers
+              (`convnet.FoldedConvLayer`: [c_out, k, k, c_in] filters,
+              `.c`, `.stride`; `convnet.fold_cnn` output): the pipeline
+              then runs the end-to-end binary CNN and takes raw [0,1]
+              pixels [B, image_side**2].
     ens_cfg : Algorithm-1 config (thresholds / bias cells); default paper's.
     device  : None -> the CUDA card (raises without CUDA); "cpu" runs the
               kernels' plain versions.
     max_bucket : optional cap on the bucket grid (see next_bucket).
+    image_side : required for conv graphs — the square input image side.
+              Rejected for MLP graphs.
+    image_encoding : the binary input layer of a conv graph
+              (`binarize.InputEncoding`); its width must equal the first
+              conv layer's c_in.  Default: thermometer of that width.
 
-    noise / params (silicon noise), image_side / image_encoding and conv
-    layers (the CNN workload) and donate= raise NotImplementedError.
+    noise / params (silicon noise) and donate= raise NotImplementedError.
     """
     if noise is not None or params is not None:
         raise NotImplementedError(
             "compile_pipeline(noise=/params=) waits for the silicon-noise "
             "slice of the port"
         )
-    if image_side is not None or image_encoding is not None:
-        raise NotImplementedError(
-            "convolutional graphs (image_side=/image_encoding=) wait for "
-            "the CNN slice of the port"
-        )
     if donate:
         raise NotImplementedError("donate= has no counterpart in the port yet")
     ens_cfg = ens_cfg or EnsembleConfig()
     if len(folded) < 1:
         raise ValueError("need at least the output layer")
-    if any(np.ndim(l.weights_pm1) != 2 for l in folded):
-        raise NotImplementedError(
-            "conv layers wait for the CNN slice of the port"
-        )
+    rest = list(folded)
+    conv_layers = []
+    while rest and is_conv_layer(rest[0]):
+        conv_layers.append(rest.pop(0))
+    if any(is_conv_layer(l) for l in rest):
+        raise ValueError("conv layers must form a prefix of `folded`")
+    if not rest:
+        raise ValueError("need an output FC layer after the conv stack")
+    if conv_layers and image_side is None:
+        raise ValueError("conv graphs need image_side=")
+    if not conv_layers and (image_side is not None
+                            or image_encoding is not None):
+        raise ValueError("image_side/image_encoding are conv-only options")
     dev = resolve_device(device)
 
-    hidden, out_layer = list(folded[:-1]), folded[-1]
+    hidden, out_layer = rest[:-1], rest[-1]
     head = build_head(out_layer, ens_cfg).to(dev)
-    layer_ws = tuple(
-        binarize.words_to_torch(binarize.np_pack_bits(
-            (np.asarray(l.weights_pm1) > 0).astype(np.uint8)), dev)
-        for l in hidden
-    )
+    w_bits = [(np.asarray(l.weights_pm1) > 0).astype(np.uint8)
+              for l in hidden]
+    layer_ws = [binarize.words_to_torch(binarize.np_pack_bits(b), dev)
+                for b in w_bits]
     layer_cs = tuple(
         torch.as_tensor(np.asarray(l.c), dtype=torch.int32).to(dev)
         for l in hidden
     )
     n_in = int(np.shape((hidden[0] if hidden else out_layer).weights_pm1)[1])
+    conv = None
+    if conv_layers:
+        enc = image_encoding or binarize.InputEncoding(
+            "thermometer", conv_layers[0].c_in
+        )
+        if enc.width != conv_layers[0].c_in:
+            raise ValueError(
+                f"encoding width {enc.width} != first conv c_in "
+                f"{conv_layers[0].c_in}"
+            )
+        metas = fused_conv.conv_metas_for(conv_layers, image_side)
+        n_pos, c_f = metas[-1].out_side ** 2, metas[-1].c_out
+        if n_in != n_pos * c_f:
+            raise ValueError(
+                f"first FC layer n_in {n_in} != flattened conv features "
+                f"{n_pos}*{c_f}"
+            )
+        if not hidden and c_f % binarize.WORD:
+            raise ValueError(
+                "conv -> head-direct needs last conv c_out % 32 == 0 "
+                f"(word-aligned flatten), got {c_f}"
+            )
+        if hidden:
+            # the flatten keeps per-position word padding: the first FC
+            # layer's rows are packed with the matching alignment
+            layer_ws[0] = fused_conv.pack_fc_rows_positionwise(
+                w_bits[0], n_pos, c_f, dev)
+        conv = ConvFront(
+            encoding=enc, side=image_side, metas=metas,
+            ws=tuple(fused_conv.pack_conv_rows(l, dev) for l in conv_layers),
+            cs=tuple(torch.as_tensor(np.asarray(l.c), dtype=torch.int32)
+                     .to(dev) for l in conv_layers),
+            head_direct=not hidden,
+        )
+        n_in = image_side * image_side
     return CompiledPipeline(
         head=head,
-        layer_ws=layer_ws,
+        layer_ws=tuple(layer_ws),
         layer_cs=layer_cs,
         layer_n_bits=tuple(int(np.shape(l.weights_pm1)[1]) for l in hidden),
         n_in=n_in,
         n_classes=head.n_classes,
         device=dev,
         min_bucket=min_bucket,
-        head_only=not hidden,
+        head_only=not hidden and conv is None,
         max_bucket=max_bucket,
+        conv=conv,
     )

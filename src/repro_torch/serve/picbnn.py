@@ -5,7 +5,7 @@ pipelines on CUDA devices.
     server = PicBnnServer(BatchingPolicy(max_batch=256, max_wait_us=500))
     server.register("mnist", compile_pipeline(folded, cfg))
     server.start()                       # or: with PicBnnServer(...) as s:
-    h = server.submit("mnist", image)    # image: [n_in] in the ±1 domain
+    h = server.submit("mnist", image)    # image: [n_in], the model's domain
     res = h.result()                     # .pred, .votes, .latency_ms, ...
     server.close()
     print(server.stats().summary())
@@ -24,6 +24,8 @@ Threads:
   completion thread: waits on each batch's event in dispatch order (never
       on the stream itself), publishes the votes and records metrics.
 
+A request is one row of what the model's `CompiledPipeline.run` takes:
+[n_in] ±1 activations for an MLP, [side*side] raw [0,1] pixels for a CNN.
 Results equal a direct `CompiledPipeline.run` on the same rows: bucketing
 is padding-invariant and every row is computed independently.
 
@@ -355,9 +357,10 @@ class PicBnnServer:
                  layer_sizes: Optional[Sequence[int]] = None,
                  silicon_cost=None, mc_samples: int = 0,
                  warmup: bool = False) -> None:
-        """Add a model (a `CompiledPipeline`) to the registry.
+        """Add a model (a `CompiledPipeline`, MLP or CNN) to the registry.
 
-        The pipeline is copied onto every serving device.  Every one of
+        The pipeline, conv operands included, is copied onto every serving
+        device (`CompiledPipeline.to`).  Every one of
         the model's micro-batches runs `InferenceSpec()` (the votes; the
         prediction is their argmax).  warmup=True runs the model's whole
         bucket grid on every device now.
@@ -505,7 +508,8 @@ class PicBnnServer:
                timeout: Optional[float] = None) -> _Handle:
         """Enqueue one single-image request; returns a result handle.
 
-        image : [n_in] in the ±1 domain (anything np.asarray-able).
+        image : [n_in] ±1 activations for an MLP, [side*side] [0,1]
+            pixels for a CNN (anything np.asarray-able).
         key   : per-request noise key — silicon models only, so rejected.
         block/timeout : admission behavior when `max_queue` is bounded;
             block=False raises QueueFullError instead of waiting.

@@ -13,8 +13,9 @@ import pytest
 import torch
 
 from repro_torch import pipeline as tpipe
-from repro_torch.core import binarize, bnn, cam, ensemble
-from repro_torch.kernels import binary_gemm, cam_search, fused_mlp
+from repro_torch.configs.paper_cnn import build_cnn_pipeline
+from repro_torch.core import binarize, bnn, cam, convnet, ensemble
+from repro_torch.kernels import binary_gemm, cam_search, fused_conv, fused_mlp
 from repro_torch.serve.picbnn import BatchingPolicy, PicBnnServer
 from repro_torch.spec import InferenceSpec
 
@@ -31,6 +32,15 @@ NETS = [(300, 192, 12, 64), (784, 64, 10, 64), (96, 32, 5, 32),
         (4096, 128, 20, 64)]
 SPECS = (InferenceSpec(), InferenceSpec(reduction="argmax"),
          InferenceSpec(cumulative=True))
+# tests/test_conv.py's CNN configs: (side, thermometer width, conv specs,
+# hidden, classes) — MNIST and HG at the paper's widths, unaligned
+# channels with a stride-1 layer, and conv -> head direct
+CNNS = {
+    "mnist-28": (28, 8, ((3, 32, 2), (3, 32, 2)), (128,), 10),
+    "hg-64": (64, 4, ((3, 32, 2), (3, 32, 2)), (128,), 20),
+    "unaligned-12": (12, 3, ((3, 24, 2), (3, 20, 1)), (48,), 7),
+    "head-direct-10": (10, 2, ((3, 32, 2),), (), 5),
+}
 
 
 @pytest.fixture
@@ -194,3 +204,143 @@ def test_served_on_card_equals_direct(dev):
             np.testing.assert_array_equal(bursts[n].votes_all(timeout=60),
                                           direct[30:])
     assert server.stats().n_requests == 70 * len(pipes)
+
+
+def _cnn(name, dev, seed=1, **kw):
+    side, width, convs, hidden, n_cls = CNNS[name]
+    cfg = convnet.CNNConfig(
+        side=side, encoding=binarize.InputEncoding("thermometer", width),
+        conv=tuple(convnet.ConvSpec(*c) for c in convs), hidden=hidden,
+        n_classes=n_cls)
+    folded = convnet.random_folded_cnn(cfg, seed=seed)
+    return cfg, folded, build_cnn_pipeline(cfg, folded, device=dev, **kw)
+
+
+def _conv_args(pipe, x):
+    conv = pipe.conv
+    xp = conv.maps(conv.pack(x))
+    return (xp, conv.ws, conv.cs, conv.metas, pipe.layer_ws, pipe.layer_cs,
+            pipe.layer_n_bits, pipe.head.cam.rows_packed)
+
+
+@pytest.mark.parametrize("name", sorted(CNNS))
+@pytest.mark.parametrize("form", ["int", "float", "sampled"])
+def test_fused_conv_equals_plain(dev, name, form):
+    cfg, _, pipe = _cnn(name, dev)
+    rng = np.random.default_rng(3)
+    b = 333
+    x = torch.from_numpy(rng.random((b, cfg.n_in)).astype(np.float32)).to(dev)
+    args = _conv_args(pipe, x)
+    head = pipe.head
+    thr, samples = _thresholds(form, rng, b, head.n_classes, head.cam.n_bits,
+                               dev)
+    kw = dict(bias_cells=head.bias_cells, head_direct=not cfg.hidden,
+              thr_samples=samples)
+    before = fused_conv.fused_conv_votes.launches
+    got = fused_conv.fused_conv_votes(*args, thr, **kw)
+    torch.cuda.synchronize()
+    assert fused_conv.fused_conv_votes.launches == before + 1
+    assert torch.equal(got, fused_conv.fused_conv_votes_plain(*args, thr,
+                                                              **kw))
+
+
+@pytest.mark.parametrize("name", sorted(CNNS))
+def test_conv_stage_equals_plain(dev, name):
+    cfg, _, pipe = _cnn(name, dev, seed=2)
+    x = torch.from_numpy(np.random.default_rng(4).random(
+        (257, cfg.n_in)).astype(np.float32)).to(dev)
+    xp, ws, cs, metas = _conv_args(pipe, x)[:4]
+    bias = pipe.head.bias_cells if not cfg.hidden else 0
+    before = fused_conv.conv_stage_packed.launches
+    got = fused_conv.conv_stage_packed(xp, ws, cs, metas, bias_cells=bias)
+    assert fused_conv.conv_stage_packed.launches == before + 1
+    want = fused_conv.conv_stage_packed_plain(
+        xp, ws, cs, metas, fused_conv.bias_drive_words(bias) if bias else None)
+    assert torch.equal(got, want)
+    kw_q = want.shape[1] + 3  # zero words up to a wider operand
+    assert torch.equal(
+        fused_conv.conv_stage_packed(xp, ws, cs, metas, bias_cells=bias,
+                                     kw_q=kw_q),
+        fused_conv.conv_stage_packed_plain(
+            xp, ws, cs, metas,
+            fused_conv.bias_drive_words(bias) if bias else None, kw_q))
+    # an empty batch launches nothing, and counts nothing
+    before = fused_conv.conv_stage_packed.launches
+    assert fused_conv.conv_stage_packed(xp[:0], ws, cs, metas,
+                                        bias_cells=bias).shape[0] == 0
+    assert fused_conv.conv_stage_packed.launches == before
+
+
+def test_fused_conv_sign_at_zero_equals_plain(dev):
+    """C = 0 with an even dot width (k = 3, c_in = 2: 18 bits): y = 0 is
+    common and maps to +1."""
+    cfg, _, pipe = _cnn("head-direct-10", dev, seed=6)
+    x = torch.from_numpy(np.random.default_rng(6).random(
+        (199, cfg.n_in)).astype(np.float32)).to(dev)
+    args = list(_conv_args(pipe, x))
+    assert args[3][0].n_bits == 18
+    args[2] = [torch.zeros(32, dtype=torch.int32, device=dev)]
+    kw = dict(bias_cells=pipe.head.bias_cells, head_direct=True)
+    thr = pipe.head.thresholds
+    assert torch.equal(fused_conv.fused_conv_votes(*args, thr, **kw),
+                       fused_conv.fused_conv_votes_plain(*args, thr, **kw))
+    assert torch.equal(
+        fused_conv.conv_stage_packed(*args[:4], bias_cells=64),
+        fused_conv.conv_stage_packed_plain(
+            *args[:4], fused_conv.bias_drive_words(64)))
+
+
+def test_fused_conv_guards(dev):
+    # deeper than the kernel's conv cap
+    deep = convnet.CNNConfig(
+        side=4, encoding=binarize.InputEncoding("thermometer", 2),
+        conv=(convnet.ConvSpec(1, 32, 1),) * (fused_conv.MAX_CONV + 1),
+        hidden=(8,), n_classes=3)
+    pipe = build_cnn_pipeline(deep, convnet.random_folded_cnn(deep, 0),
+                              device=dev)
+    with pytest.raises(ValueError, match="conv layers"):
+        pipe.run(np.zeros((2, deep.n_in), np.float32), InferenceSpec())
+    # 8 queries of a 200 x 200 image overflow a block's shared memory
+    wide = convnet.CNNConfig(
+        side=200, encoding=binarize.InputEncoding("thermometer", 1),
+        conv=(convnet.ConvSpec(3, 32, 8),), hidden=(8,), n_classes=3)
+    pipe = build_cnn_pipeline(wide, convnet.random_folded_cnn(wide, 0),
+                              device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        pipe.run(np.zeros((2, wide.n_in), np.float32), InferenceSpec())
+    # operands on another device than the input
+    cfg, _, pipe = _cnn("unaligned-12", dev)
+    args = list(_conv_args(pipe, torch.zeros((3, cfg.n_in), device=dev)))
+    args[1] = [w.cpu() for w in args[1]]
+    with pytest.raises(ValueError, match="conv rows is on cpu"):
+        fused_conv.fused_conv_votes(*args, pipe.head.thresholds,
+                                    bias_cells=pipe.head.bias_cells)
+
+
+@pytest.mark.parametrize("name", sorted(CNNS))
+def test_cnn_pipeline_on_card_equals_cpu(dev, name):
+    cfg, folded, card = _cnn(name, None, seed=5, min_bucket=8)
+    assert card.device.type == "cuda"
+    cpu = build_cnn_pipeline(cfg, folded, device="cpu", min_bucket=8)
+    x = np.random.default_rng(9).random((133, cfg.n_in)).astype(np.float32)
+    for spec in SPECS:
+        for b in (1, 133):
+            assert torch.equal(card.run(x[:b], spec).cpu(),
+                               cpu.run(x[:b], spec))
+
+
+def test_served_cnn_on_card_equals_direct(dev):
+    cfg, _, pipe = _cnn("mnist-28", None, seed=7, min_bucket=8)
+    server = PicBnnServer(BatchingPolicy(max_batch=32, max_wait_us=500))
+    server.register("cnn", pipe)
+    server.warmup()
+    x = np.random.default_rng(1).random((70, cfg.n_in)).astype(np.float32)
+    direct = pipe.run(x, InferenceSpec()).cpu().numpy()
+    with server:
+        singles = [server.submit("cnn", x[i]) for i in range(30)]
+        burst = server.submit_many("cnn", x[30:])
+        np.testing.assert_array_equal(
+            np.stack([h.result(timeout=60).votes for h in singles]),
+            direct[:30])
+        np.testing.assert_array_equal(burst.votes_all(timeout=60),
+                                      direct[30:])

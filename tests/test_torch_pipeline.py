@@ -93,9 +93,13 @@ def test_unported_options_raise():
     sizes, bias = NETS["2048x64"]
     _, tf = random_folded(sizes, 0, bias)
     cfg = tens.EnsembleConfig(bias_cells=bias)
-    for kw in (dict(noise=object()), dict(image_side=28), dict(donate=True)):
+    for kw in (dict(noise=object()), dict(donate=True)):
         with pytest.raises(NotImplementedError):
             tpipe.compile_pipeline(tf, cfg, device="cpu", **kw)
+    # the CNN slice is ported: image_side on an MLP graph is the
+    # reference's ValueError
+    with pytest.raises(ValueError, match="conv-only"):
+        tpipe.compile_pipeline(tf, cfg, device="cpu", image_side=28)
     p = tpipe.compile_pipeline(tf, cfg, device="cpu")
     x = pm1(np.random.default_rng(0), (3, sizes[0]))
     for spec in (InferenceSpec(noise="batch"),
