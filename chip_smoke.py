@@ -6,7 +6,10 @@ Phases (any failure exits non-zero; no failure is caught and followed by
 exit 0):
 
 1. Print the card's name and power limit (nvidia-smi), build the CUDA
-   kernels from the sources in this checkout, timed, with ptxas' report.
+   kernels from the sources in this checkout, timed, with ptxas' report
+   (registers, spills, shared memory) and each library's tensor-core
+   instructions in its SASS (`cuobjdump -sass`: IMMA, BMMA); kernels 1
+   and 4 must hold some.
 2. Each kernel at the main path's shapes against its plain PyTorch
    version on the card: `torch.equal` is required.  Kernels 1-3 at the
    paper's MNIST 784-128-10 and Hand-Gesture 4096-128-20 MLPs, kernel 4
@@ -19,6 +22,9 @@ exit 0):
    query against the FC rows, then the head query).  Kernel time, plain
    time, and for kernel 1 the time of `torch._int_mm` on the unpacked ±1
    int8 operands (the same function, n - 2*HD; the port never calls it).
+   Each time stands beside PR 7's and beside its bound: the least time
+   over the popcount route and the int8 and 1-bit tensor-core routes,
+   each the larger of its operations and its bytes (`Card.bound_ms`).
    Then `run()` per call at each batch size, and the CNN input layer
    (`InputEncoding.pack`) alone at B = 4096, in a `{"e2e": ...}` line.
 3. The main path, with every launch counter set to 0 just before it: the
@@ -62,6 +68,19 @@ MAIN_BATCHES = (1, 100, 4096)
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 POPC_PER_CLK_SM = 16  # __popc, compute capability 9.0 (CUDA C++ guide)
 ALU_PER_CLK_SM = 64  # 32-bit add/xor/compare, compute capability 9.0
+# dense int8 tensor-core MACs: 1,979 TOPS at 1.83 GHz on 132 SMs (data sheet)
+INT8_MACS_PER_CLK_SM = 4096
+# 1-bit products: unpublished; `mma.sync .b1` issues at the int8 rate with
+# 8x the bits (scripts/torch_mma_probe.py), so 8x the int8 peak
+B1_MACS_PER_CLK_SM = 8 * INT8_MACS_PER_CLK_SM
+# device times of PR 7's run (NVIDIA H100 80GB HBM3, 700 W), HG (MNIST):
+# kernels 2 and 3 keep their device code and are held to these
+PR7_MS = {"cam_vote": (0.0049, 0.0049), "fused_mlp_votes": (0.0571, 0.0131),
+          "binary_gemm_hd": (0.0236, 0.0071),
+          "fused_conv_votes": (0.8909, 0.1218),
+          "conv_stage_packed": (0.8118, 0.1084)}
+# the redesigned kernels' libraries must hold tensor-core products
+TENSOR_CORE_LIBS = ("binary_gemm", "fused_conv")
 REPLACES = {
     "binary_gemm_hd": "src/repro/kernels/binary_gemm.py:72",
     "cam_vote": "src/repro/kernels/cam_search.py:72",
@@ -155,14 +174,38 @@ class Card:
         clock = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
         return cls(sms, clock)
 
-    def bound_ms(self, popc: float, alu: float, nbytes: float):
-        """Least time: the larger of the popcount pipe, the 32-bit ALU
-        pipe and memory; returns (ms, "operations" | "bytes")."""
-        t_ops = max(popc / POPC_PER_CLK_SM, alu / ALU_PER_CLK_SM) / (
-            self.sms * self.clock_hz)
+    def bound_ms(self, popc: float, alu: float, nbytes: float,
+                 macs: float, alu_tc: float):
+        """Least time for a function over the routes that compute it: the
+        popcount route (`popc` popcounts and `alu` 32-bit ALU operations)
+        and the tensor-core routes (`macs` bit products at the int8 or the
+        1-bit rate, with `alu_tc` ALU operations beside them); each route
+        takes the larger of its operations and its `nbytes` of memory.
+        Returns (ms, "popcount" | "tensor cores" | "bytes", {route: ms})."""
+        clk = self.sms * self.clock_hz
+        ops = {
+            "popcount": max(popc / POPC_PER_CLK_SM, alu / ALU_PER_CLK_SM),
+            "int8 tensor cores": max(macs / INT8_MACS_PER_CLK_SM,
+                                     alu_tc / ALU_PER_CLK_SM),
+            "b1 tensor cores": max(macs / B1_MACS_PER_CLK_SM,
+                                   alu_tc / ALU_PER_CLK_SM),
+        }
         t_mem = nbytes / MEM_BYTES_PER_S
-        return (max(t_ops, t_mem) * 1e3,
-                "operations" if t_ops >= t_mem else "bytes")
+        routes = {k: max(v / clk, t_mem) * 1e3 for k, v in ops.items()}
+        best = min(ops, key=ops.get)
+        by = ("bytes" if t_mem >= ops[best] / clk
+              else "popcount" if best == "popcount" else "tensor cores")
+        return min(routes.values()), by, routes
+
+
+def bound_fields(card: Card, *work) -> dict:
+    """A row's bound keys: `bound_ms`, `bound_by` ("bytes" or
+    "operations"), `bound_route` (the route that sets it: "popcount",
+    "tensor cores" or "bytes") and each route's time."""
+    ms, route, routes = card.bound_ms(*work)
+    return dict(bound_ms=ms,
+                bound_by="bytes" if route == "bytes" else "operations",
+                bound_route=route, bound_routes=routes)
 
 
 def random_folded(sizes, seed, bias_cells, bnn):
@@ -191,46 +234,57 @@ def threshold_forms(thr, b, n_cls, gen, dev):
 
 
 def conv_work(pipe, b: int, p: int, stage: bool, kw_q: int = 0):
-    """Popcounts, 32-bit ALU operations and bytes of the function of
-    kernel 4 (stage=True: its conv stack and flatten only, writing kw_q
-    words per query) on a batch of b.
+    """The work of kernel 4's function (stage=True: its conv stack and
+    flatten only, writing kw_q words per query) on a batch of b, as
+    `Card.bound_ms` takes it: (popcounts, ALU operations, bytes, bit
+    products, ALU operations beside the products).
 
-    A conv output needs ceil(k*k*c_in/32) popcounts: where c_in is not a
-    multiple of 32, each position's k*k pixels are first packed densely,
-    a shift and an OR per pixel word, shared by the position's c_out
-    channels.  (The kernel as written pops the per-pixel padded k*k*Cw
-    words instead: 9 for 36 real bits in the HG CNN's conv 1.)"""
+    A conv output needs ceil(k*k*c_in/32) popcounts on the popcount route
+    (each position's k*k pixels first packed densely, a shift and an OR
+    per pixel word, shared by the position's c_out channels), and
+    k*k*c_in bit products on a tensor-core route.  Either way a conv or
+    FC output costs 2 ALU operations, a compare of its distance against
+    the channel's fixed limit (y = n_bits - 2*HD + C >= 0 is
+    HD <= (n_bits + C) >> 1) and the repack, and the head's vote 2 a
+    threshold."""
     conv = pipe.conv
-    popc = alu = 0
+    popc = alu = macs = alu_tc = 0
     nbytes = 4 * b * conv.side ** 2 * conv.metas[0].cw_in
     for m, w in zip(conv.metas, conv.ws):
         n_pos, padded = m.out_side ** 2, m.k * m.k * m.cw_in
         dense = -(-m.n_bits // 32)
         popc += n_pos * m.c_out * dense
-        alu += 3 * n_pos * m.c_out + (2 * n_pos * padded if dense < padded
+        alu += 2 * n_pos * m.c_out + (2 * n_pos * padded if dense < padded
                                       else 0)
+        macs += n_pos * m.c_out * m.n_bits
+        alu_tc += 2 * n_pos * m.c_out
         nbytes += 4 * (w.numel() + m.c_out)
     if stage:
         nbytes += 4 * b * kw_q
-        return b * popc, b * (2 * popc + alu), nbytes
+        return b * popc, b * (2 * popc + alu), nbytes, b * macs, b * alu_tc
     head = pipe.head.cam.rows_packed
-    for w in pipe.layer_ws:
+    for w, n in zip(pipe.layer_ws, pipe.layer_n_bits):
         popc += w.numel()
-        alu += 3 * w.shape[0]
+        alu += 2 * w.shape[0]
+        macs += w.shape[0] * n
+        alu_tc += 2 * w.shape[0]
         nbytes += 4 * (w.numel() + w.shape[0])
     popc += head.numel()
     alu += 2 * head.shape[0] * p
+    macs += head.shape[0] * pipe.head.cam.n_bits
+    alu_tc += 2 * head.shape[0] * p
     nbytes += 4 * (head.numel() + p + b * head.shape[0])
-    return b * popc, b * (2 * popc + alu), nbytes
+    return (b * popc, b * (2 * popc + alu), nbytes, b * macs, b * alu_tc)
 
 
 def gemm_row(card, x, w, ms, call_ms, plain_ms, lib_ms, err) -> dict:
     """A kernels-line row of kernel 1 on x [M, Kw] against w [N, Kw]."""
     (m, kw), n = x.shape, w.shape[0]
     pairs = m * n * kw
-    bound, by = card.bound_ms(pairs, 2 * pairs, 4 * (m * kw + n * kw + m * n))
     return dict(shape=f"x[{m},{kw}] w[{n},{kw}]", ms=ms, call_ms=call_ms,
-                plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                plain_ms=plain_ms, **bound_fields(
+                    card, pairs, 2 * pairs, 4 * (m * kw + n * kw + m * n),
+                    32 * pairs, 0),
                 library_ms=lib_ms, max_abs_err=err)
 
 
@@ -272,7 +326,7 @@ def check_gemm_at_cnn(pipe, q, card, mid: str, report: dict) -> None:
     print(f"  {mid:9s} binary_gemm_hd == plain (FC, head) {row['shape']}: "
           f"kernel {row['ms']} ms (call {row['call_ms']:.4f} ms), plain "
           f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
-          f"({row['bound_by']}), library {row['library_ms']}")
+          f"({row['bound_route']}), library {row['library_ms']}")
 
 
 def check_conv_kernels(pipe, xp, gen, card, mid: str, report: dict,
@@ -324,15 +378,15 @@ def check_conv_kernels(pipe, xp, gen, card, mid: str, report: dict,
                                                   kw_q=kw_q),
              lambda: fused_conv.conv_stage_packed_plain(*sargs, bw, kw_q),
              True, stage_err)):
-        popc, alu, nbytes = conv_work(pipe, b, thr.shape[0], stage, kw_q)
-        bound, by = card.bound_ms(popc, alu, nbytes)
         report[name]["per_model"][mid] = dict(
             shape=f"x[{b},{maps[0]},{maps[0]},{maps[1]}] conv "
                   f"{[(m.k, m.c_out, m.stride) for m in conv.metas]} "
                   f"fc {[w.shape[0] for w in pipe.layer_ws]} "
                   f"C={head.n_classes} P={thr.shape[0]}",
             ms=device_ms(fn, iters=20), call_ms=time_ms(fn, 20),
-            plain_ms=time_ms(plain, 3), bound_ms=bound, bound_by=by,
+            plain_ms=time_ms(plain, 3),
+            **bound_fields(card, *conv_work(pipe, b, thr.shape[0], stage,
+                                            kw_q)),
             library_ms=None, max_abs_err=err)
 
 
@@ -358,6 +412,18 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
+    for name in _build.SOURCES:
+        ops = [[t for t in ln.split(";")[0].split("*/")[-1].split()
+                if not t.startswith("@")]  # the mnemonic after a predicate
+               for ln in _build.sass(_build.build_dir() / f"{name}.so")
+               .splitlines() if "MMA" in ln]
+        n_imma = sum(1 for o in ops if o and o[0].startswith("IMMA"))
+        n_bmma = sum(1 for o in ops if o and o[0].startswith("BMMA"))
+        kinds = sorted({o[0] for o in ops if o})
+        print(f"  SASS {name}: IMMA {n_imma}, BMMA {n_bmma} {kinds}")
+        if name in TENSOR_CORE_LIBS:
+            require(n_imma + n_bmma > 0,
+                    f"{name}: no tensor-core MMA (IMMA/BMMA) in its SASS")
     kernels = run(torch.device("cuda", 0), B_MAIN, MAIN_BATCHES, card, smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -443,10 +509,11 @@ def run(dev: torch.device, b_main: int, batches, card: Card,
                            gen, card, mid, report, False)
     for k in ("fused_conv_votes", "conv_stage_packed"):
         for mid, row in report[k]["per_model"].items():
+            pr7 = PR7_MS[k][mid == "mnist_cnn"]
             print(f"  {mid:9s} {k:17s} {row['shape']}: kernel {row['ms']} ms "
-                  f"(call {row['call_ms']:.4f} ms), plain "
+                  f"(PR 7: {pr7}; call {row['call_ms']:.4f} ms), plain "
                   f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
-                  f"({row['bound_by']})")
+                  f"({row['bound_route']})")
     for mid, m in models.items():
         pipe = m["gpu"]
         xp = binarize.pack_pm1(torch.from_numpy(m["x"]).to(dev))
@@ -498,12 +565,13 @@ def run(dev: torch.device, b_main: int, batches, card: Card,
         k2_plain_ms = time_ms(
             lambda: cam_search.cam_vote_plain(q, head, thr), 3)
         pairs = b * n_cls * kw_h
-        bound, by = card.bound_ms(pairs, 2 * pairs + 2 * b * n_cls * p,
-                                  4 * (b * kw_h + n_cls * kw_h + p + b * n_cls))
+        vote = 2 * b * n_cls * p
         report["cam_vote"]["per_model"][mid] = dict(
             shape=f"q[{b},{kw_h}] rows[{n_cls},{kw_h}] P={p}", ms=k2_ms,
-            call_ms=k2_call,
-            plain_ms=k2_plain_ms, bound_ms=bound, bound_by=by,
+            call_ms=k2_call, plain_ms=k2_plain_ms, **bound_fields(
+                card, pairs, 2 * pairs + vote,
+                4 * (b * kw_h + n_cls * kw_h + p + b * n_cls), 32 * pairs,
+                vote),
             library_ms=None, max_abs_err=max(errs))
 
         # kernel 3: the whole net, all three threshold forms
@@ -524,21 +592,23 @@ def run(dev: torch.device, b_main: int, batches, card: Card,
         k3_plain_ms = time_ms(lambda: fused_mlp.fused_mlp_votes_plain(
             *args, thr, bias_cells=bias), 3)
         pairs = b * (n_hidden * kw0 + n_cls * kw_h)
-        alu = 2 * pairs + 3 * b * n_hidden + 2 * b * n_cls * p
+        beside = 2 * b * n_hidden + 2 * b * n_cls * p
         nbytes = 4 * (b * kw0 + n_hidden * kw0 + n_hidden + n_cls * kw_h + p
                       + b * n_cls)
-        bound, by = card.bound_ms(pairs, alu, nbytes)
+        macs = b * (n_hidden * n1 + n_cls * pipe.head.cam.n_bits)
         report["fused_mlp_votes"]["per_model"][mid] = dict(
             shape=f"x[{b},{kw0}] {m['cfg'].layer_sizes} P={p}", ms=k3_ms,
-            call_ms=k3_call,
-            plain_ms=k3_plain_ms, bound_ms=bound, bound_by=by,
+            call_ms=k3_call, plain_ms=k3_plain_ms, **bound_fields(
+                card, pairs, 2 * pairs + beside, nbytes, macs, beside),
             library_ms=None, max_abs_err=max(errs))
         for k in ("binary_gemm_hd", "cam_vote", "fused_mlp_votes"):
             row = report[k]["per_model"][mid]
+            pr7 = PR7_MS[k][mid == "mnist"]
             print(f"  {mid:5s} {k:16s} {row['shape']}: kernel "
-                  f"{row['ms']} ms (call {row['call_ms']:.4f} ms), plain "
+                  f"{row['ms']} ms (PR 7: {pr7}; call "
+                  f"{row['call_ms']:.4f} ms), plain "
                   f"{row['plain_ms']:.3f} ms, bound "
-                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}), library "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_route']}), library "
                   f"{row['library_ms']}")
 
     # ------------------- end to end: one run() call, input already on dev
@@ -674,6 +744,7 @@ def run(dev: torch.device, b_main: int, batches, card: Card,
             ms=main["ms"], kernel_ms=main["ms"], call_ms=main["call_ms"],
             plain_ms=main["plain_ms"],
             bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+            bound_route=main["bound_route"],
             library_ms=main["library_ms"], shape=main["shape"],
             per_model=r["per_model"], card=smi,
         ))

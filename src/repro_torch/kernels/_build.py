@@ -73,6 +73,14 @@ def nvcc_path() -> str:
     )
 
 
+def sass(lib_path) -> str:
+    """The SASS of a built library (`cuobjdump -sass`, beside nvcc)."""
+    tool = Path(nvcc_path()).with_name("cuobjdump")
+    return subprocess.run([str(tool), "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+
+
 def source_hash() -> str:
     """Hash of every kernel source, header and nvcc flag."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())

@@ -53,7 +53,7 @@ __device__ __forceinline__ void load_thresholds(uint32_t* thr_s,
   for (int i = tid; i < p; i += nt) thr_s[i] = thr[i];
 }
 
-// Pairwise Hamming-distance tile used by kernels 1 and 2.
+// Pairwise Hamming-distance tile used by kernel 2 (cam_search.cu).
 // A block of 32 x 8 threads owns a 32 x 32 output tile; thread (tx, ty)
 // computes rows m0 + ty + 8*i (i < 4) against column n0 + tx.  K is
 // walked in steps of kKt words staged in shared memory; ragged M, N and
@@ -91,8 +91,8 @@ __device__ __forceinline__ void tile_hd(const uint32_t* __restrict__ x,
 }
 
 // ---------------------------------------------------------------------
-// The FC/head tail of a fused net: kernel 3 runs it on its input, kernel
-// 4 on the flattened conv features.
+// The FC/head tail of kernel 3 (fused_mlp.cu).  Kernel 4 fills the same
+// MlpTail (`fill_tail`) and runs its own tail on the tensor cores.
 // ---------------------------------------------------------------------
 constexpr int kMaxLayers = 8;  // hidden FC layers the tail carries
 constexpr int kQ = 8;          // queries a warp carries per output word

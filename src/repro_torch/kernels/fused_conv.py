@@ -8,6 +8,7 @@
                      padded to the word boundary) + the bias drive words
                      when the head is direct
     FC + head:       kernel 3's hidden-layer step and 33-threshold vote
+                     (the same function, on the tensor cores)
 
 Only the channel-packed input [B, S, S, Cw0] enters and only the [B, C]
 int32 votes leave device memory.
@@ -34,6 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Sequence
 
 import numpy as np
@@ -54,7 +56,6 @@ from repro_torch.kernels.cam_search import (
 )
 from repro_torch.kernels.fused_mlp import (
     MAX_LAYERS,
-    QUERIES_PER_WARP,
     SMEM_LIMIT,
     check_tail,
     fused_mlp_votes_plain,
@@ -63,7 +64,7 @@ from repro_torch.kernels.fused_mlp import (
 
 MAX_CONV = 8  # csrc/fused_conv.cu kMaxConv
 STAGE = 3  # csrc/fused_conv.cu kStage: write the flattened query
-QUERIES_PER_BLOCK = QUERIES_PER_WARP  # csrc/fused_conv.cu: a block holds kQ
+QUERIES_PER_BLOCK = 16  # csrc/fused_conv.cu kQB: one m16 tile of queries
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,6 +142,131 @@ def pack_fc_rows_positionwise(w_bits: np.ndarray, n_pos: int, c: int,
 def bias_drive_words(bias_cells: int) -> np.ndarray:
     """Packed all-ones bias searchline words (uint32, logic '1' bits)."""
     return np_pack_bits(np.ones((1, bias_cells), np.uint8))[0]
+
+
+# ---------------------------------------------------------------------------
+# the kernel's dense tap layout (csrc/fused_conv.cu), built on the host
+# ---------------------------------------------------------------------------
+
+
+def dense_pitch(c_in: int) -> int:
+    """Bits a tap takes in a dense K vector: c_in rounded up to a power of
+    two up to 16, so that taps never straddle a word; whole channel words
+    above 16."""
+    if c_in <= 16:
+        return 1 << (c_in - 1).bit_length()
+    return WORD * -(-c_in // WORD)
+
+
+@dataclasses.dataclass(frozen=True)
+class DensePlan:
+    """How the kernel builds one conv layer's dense K vectors.
+
+    On the compacted input (`store` == `pitch` < 32 bits a pixel) a
+    position's K vector holds its k*k taps at `pitch` bits each (zero
+    above c_in); each kernel row dy starts a new word and fills
+    ceil(k*pitch/32) words, 32/pitch taps a word.  Other layers take
+    whole channel words (pitch = store = 32*Cw): word d is channel word
+    d % Cw of tap d // Cw.  Either way dense word d is one run of the
+    map: `runs[d]` = (src, n), the n bits at bit base + src (base = the
+    position's first pixel times `store`).  The kernel tabulates the same
+    runs per block (csrc/fused_conv.cu `dense_word`).
+    """
+
+    pitch: int
+    store: int
+    words: int
+    runs: tuple  # per dense word, (src, n)
+
+    @property
+    def ksteps(self) -> int:
+        """256-bit tensor-core K steps."""
+        return -(-self.words // 8)
+
+
+def conv_c_in(m: ConvMeta) -> int:
+    """Logical input channels of a conv layer."""
+    return m.n_bits // (m.k * m.k)
+
+
+@functools.lru_cache(maxsize=None)
+def dense_plan(m: ConvMeta, compact: bool) -> DensePlan:
+    """The dense plan of layer `m`; `compact`: its input map holds
+    `dense_pitch(c_in)` < 32 bits a pixel (the kernel's first layer when
+    c_in <= 16), else whole channel words."""
+    if not compact:
+        pitch = WORD * m.cw_in
+        runs = tuple(
+            ((((tap // m.k) * m.side + tap % m.k) * m.cw_in + j) * WORD,
+             WORD)
+            for tap in range(m.k * m.k) for j in range(m.cw_in))
+        return DensePlan(pitch, pitch, len(runs), runs)
+    pitch = dense_pitch(conv_c_in(m))
+    if pitch >= WORD:
+        raise ValueError(f"{conv_c_in(m)} channels cannot be compacted")
+    per = WORD // pitch  # taps a word
+    runs = tuple(((dy * m.side + dx0) * pitch, min(per, m.k - dx0) * pitch)
+                 for dy in range(m.k) for dx0 in range(0, m.k, per))
+    return DensePlan(pitch, pitch, len(runs), runs)
+
+
+def dense_plans(metas) -> tuple[DensePlan, ...]:
+    """The kernel's plans for a conv stack (the input map compacted
+    where c_in <= 16)."""
+    return tuple(dense_plan(m, i == 0 and dense_pitch(conv_c_in(m)) < WORD)
+                 for i, m in enumerate(metas))
+
+
+def _u32(t: torch.Tensor) -> torch.Tensor:
+    """int32 words as their uint32 values, in int64."""
+    return t.to(torch.int64) & 0xFFFFFFFF
+
+
+def _i32(v: torch.Tensor) -> torch.Tensor:
+    """uint32 values held in int64 -> the int32 words of their bits."""
+    return (v - ((v >> 31) << 32)).to(torch.int32)
+
+
+def compact_map_plain(x: torch.Tensor, pitch: int) -> torch.Tensor:
+    """[B, S, S, 1] int32 maps -> [B, ceil(S*S*pitch/32)] int32 words,
+    `pitch` bits a pixel (the kernel's compacted input map)."""
+    b = x.shape[0]
+    bits = _u32(x.reshape(b, -1)) & ((1 << pitch) - 1)
+    per = WORD // pitch
+    bits = torch.nn.functional.pad(bits, (0, -bits.shape[1] % per))
+    shifts = torch.arange(per, device=x.device) * pitch
+    return _i32((bits.reshape(b, -1, per) << shifts).sum(-1))
+
+
+def dense_rows_plain(maps: torch.Tensor, m: ConvMeta,
+                     plan: DensePlan) -> torch.Tensor:
+    """The dense K vectors the kernel builds: [B, words] int32 maps (as
+    the plan's `store` lays them out) -> [B, out_side**2, plan.words]."""
+    b, dev = maps.shape[0], maps.device
+    mp = torch.nn.functional.pad(_u32(maps), (0, 1))  # the +1 word read
+    o = torch.arange(m.out_side, device=dev) * m.stride
+    base = ((o[:, None] * m.side + o[None, :]) * plan.store).reshape(-1)
+    out = torch.zeros((b, base.shape[0], plan.words), dtype=torch.int64,
+                      device=dev)
+    for d, (src, n) in enumerate(plan.runs):
+        a = base + src
+        lo, hi = mp[:, a >> 5], mp[:, (a >> 5) + 1]
+        out[..., d] = ((hi << 32 | lo) >> (a & 31)) & ((1 << n) - 1)
+    return _i32(out)
+
+
+def dense_filter_rows_plain(w: torch.Tensor, m: ConvMeta,
+                            plan: DensePlan) -> torch.Tensor:
+    """Tap-major rows [c_out, k*k*Cw] -> the dense rows [c_out, words]
+    the kernel stages in shared memory."""
+    if plan.pitch >= WORD:
+        return w.clone()
+    per = WORD // plan.pitch
+    wr = plan.words // m.k  # words a kernel row
+    taps = _u32(w).reshape(w.shape[0], m.k, m.k) & ((1 << plan.pitch) - 1)
+    taps = torch.nn.functional.pad(taps, (0, wr * per - m.k))
+    shifts = torch.arange(per, device=w.device) * plan.pitch
+    return _i32((taps.reshape(w.shape[0], plan.words, per) << shifts).sum(-1))
 
 
 # ---------------------------------------------------------------------------
@@ -273,19 +399,41 @@ def _flat_bias(conv_metas, layer_ws, bias_cells: int,
     return bias_cells
 
 
-def _layout(conv_metas, kw_q: int, tail_kws: Sequence[int]):
+def _round_ld(words: int) -> int:
+    """A query stride of 4 mod 8 words: the FC stages' fragment loads
+    (rows g, words t / t+4) then hit 32 banks."""
+    return words + (4 - words) % 8
+
+
+@functools.lru_cache(maxsize=64)
+def _layout(conv_metas: tuple, kw_q: int, tail_kws: tuple):
     """Shared-memory layout of csrc/fused_conv.cu: (words per query of the
-    two halves of the ping-pong pair, words of staged filter rows, bytes
-    per block).  Map i (input 0, conv outputs, then each FC output) sits
-    in half i % 2."""
-    stages = ([conv_metas[0].side ** 2 * conv_metas[0].cw_in]
+    two halves of the ping-pong pair, bytes per block, the conv layers'
+    meta ints as the launcher takes them).  Map i (the compacted input 0,
+    conv outputs, then each FC output) sits in half i % 2; before the
+    maps, the word table (a run's first bit and mask per dense word), the
+    dense filter rows at a stride of ksteps*8 + 4 words, and each layer's
+    position and channel tables.  Cached: it depends on the shapes only."""
+    plans = dense_plans(conv_metas)
+    m0, p0 = conv_metas[0], plans[0]
+    stages = ([-(-m0.side ** 2 * p0.store // WORD)]
               + [m.out_side ** 2 * m.cw_out for m in conv_metas[:-1]]
               + [kw_q, *tail_kws])
-    buf0, buf1 = max(stages[0::2]), max(stages[1::2])
-    filt = sum(m.cw_out * WORD * ((m.k * m.k * m.cw_in) | 1)
-               for m in conv_metas)
-    nbytes = 4 * (MAX_PASSES + filt + QUERIES_PER_BLOCK * (buf0 + buf1))
-    return buf0, buf1, nbytes
+    buf0 = _round_ld(max(stages[0::2]))
+    buf1 = _round_ld(max(stages[1::2]))
+    table = 2 * sum(p.words for p in plans)
+    filt = sum(m.cw_out * WORD * (p.ksteps * 8 + 4)
+               for m, p in zip(conv_metas, plans))
+    # per layer: each position's first pixel (m16 tiles), and each
+    # channel's largest distance that sets its bit
+    tables = sum(16 * -(-m.out_side ** 2 // 16) + WORD * m.cw_out
+                 for m in conv_metas)
+    nbytes = 4 * (MAX_PASSES + table + filt + tables
+                  + QUERIES_PER_BLOCK * (buf0 + buf1) + 1)
+    meta = tuple(v for m in conv_metas
+                 for v in (m.side, m.cw_in, m.k, m.stride, m.out_side,
+                           m.c_out, m.cw_out, m.n_bits))
+    return buf0, buf1, nbytes, meta
 
 
 def _launch(x_packed, conv_ws, conv_cs, conv_metas, layer_ws, layer_cs,
@@ -300,9 +448,10 @@ def _launch(x_packed, conv_ws, conv_cs, conv_metas, layer_ws, layer_cs,
     if len(layer_ws) > MAX_LAYERS:
         raise ValueError(f"{len(layer_ws)} FC layers > the kernel's "
                          f"{MAX_LAYERS}")
-    tail_kws = [w.shape[1] for w in layer_ws[1:]] + (
-        [head_rows.shape[1]] if layer_ws else [])
-    buf0, buf1, nbytes = _layout(conv_metas, kw_q, tail_kws)
+    tail_kws = tuple(w.shape[1] for w in layer_ws[1:]) + (
+        (head_rows.shape[1],) if layer_ws else ())
+    buf0, buf1, nbytes, meta_ints = _layout(tuple(conv_metas), kw_q,
+                                            tail_kws)
     if nbytes > SMEM_LIMIT:
         raise ValueError(
             f"{QUERIES_PER_BLOCK} queries of this net need {nbytes} bytes "
@@ -326,10 +475,7 @@ def _launch(x_packed, conv_ws, conv_cs, conv_metas, layer_ws, layer_cs,
     n_conv = len(conv_metas)
     cw_ptrs = (ctypes.c_void_p * n_conv)(*[w.data_ptr() for w in conv_ws])
     cc_ptrs = (ctypes.c_void_p * n_conv)(*[c.data_ptr() for c in conv_cs])
-    meta = (ctypes.c_int * (8 * n_conv))(*[
-        v for m in conv_metas for v in (m.side, m.cw_in, m.k, m.stride,
-                                        m.out_side, m.c_out, m.cw_out,
-                                        m.n_bits)])
+    meta = (ctypes.c_int * len(meta_ints))(*meta_ints)
     tail = tail_arrays(layer_ws, layer_cs, layer_n_bits)
     addr = ctypes.addressof
     lib = _build.library("fused_conv")

@@ -470,3 +470,98 @@ def test_served_cnn_votes_equal_direct_run():
         srv2.register("cnn", tp)
         srv2.submit("cnn", x[0, :-1])
 
+
+
+# ------------------------------------- the kernel's dense tap layout (host)
+
+# (side, c_in, k, stride, c_out): thermometer widths 1-4 and 8 (compact
+# input maps), a 5-channel (pitch 8) and 16-channel map, 24 and 32
+# channels (whole words), 40 channels (two words), 1x1 and 5x5 kernels
+DENSE_LAYERS = [(9, 1, 3, 2, 8), (10, 2, 3, 2, 32), (12, 3, 3, 2, 24),
+                (13, 4, 3, 2, 32), (11, 8, 3, 2, 32), (9, 5, 3, 1, 7),
+                (8, 16, 3, 1, 32), (7, 24, 3, 1, 20), (7, 32, 3, 2, 32),
+                (6, 40, 3, 1, 9), (6, 4, 1, 1, 5), (11, 3, 5, 2, 33)]
+
+
+def _kernel_word(meta, pitch, d):
+    """Dense word d's run (src, n) by the arithmetic of csrc/fused_conv.cu
+    `dense_word`."""
+    if pitch >= 32:
+        tap = d // meta.cw_in
+        return ((((tap // meta.k) * meta.side + tap % meta.k) * meta.cw_in
+                 + d % meta.cw_in) * 32, 32)
+    per = 32 // pitch
+    wr = -(-meta.k // per)
+    dx0 = d % wr * per
+    return ((d // wr * meta.side + dx0) * pitch, min(per, meta.k - dx0) * pitch)
+
+
+def _dense_hd(maps, w, meta, plan):
+    """Hamming distances through the dense rows the kernel builds."""
+    rows = fused_conv.dense_rows_plain(maps, meta, plan)
+    filt = fused_conv.dense_filter_rows_plain(w, meta, plan)
+    assert tuple(filt.shape) == (meta.c_out, plan.words)
+    hd = tbin.popcount32(rows[:, :, None, :] ^ filt[None, None]).sum(-1)
+    return hd.reshape(maps.shape[0], meta.out_side, meta.out_side, -1)
+
+
+@pytest.mark.parametrize("side,c_in,k,stride,c_out", DENSE_LAYERS)
+@pytest.mark.parametrize("compact", [True, False])
+def test_dense_taps_match_reference_conv_hd(side, c_in, k, stride, c_out,
+                                            compact):
+    """The dense K rows and filter rows of csrc/fused_conv.cu, built from
+    the host plan, give the reference's `conv_hd_packed` distances; the
+    plan's runs are the ones the kernel's word table computes."""
+    rng = np.random.default_rng(side * 100 + c_in)
+    cw = tbin.packed_width(c_in)
+    out_side = (side - k) // stride + 1
+    meta = fused_conv.ConvMeta(side, cw, k, stride, out_side, c_out,
+                               tbin.packed_width(c_out), k * k * c_in)
+    jmeta = jfc.ConvMeta(*dataclasses.astuple(meta))
+    x_bits = rng.integers(0, 2, (3 * side * side, c_in)).astype(np.uint8)
+    x = tbin.np_pack_bits(x_bits).reshape(3, side, side, cw)
+    w = tbin.np_pack_bits(rng.integers(0, 2, (c_out * k * k, c_in)).astype(
+        np.uint8)).reshape(c_out, k * k * cw)
+    want = np.asarray(jfc.conv_hd_packed(jnp.asarray(x), jnp.asarray(w),
+                                         jmeta))
+    compact = compact and fused_conv.dense_pitch(c_in) < 32
+    plan = fused_conv.dense_plan(meta, compact)
+    assert plan.words == (k * k * cw if plan.pitch >= 32
+                          else k * -(-k * plan.pitch // 32))
+    assert plan.pitch >= c_in and (plan.pitch <= 16 or plan.pitch == 32 * cw)
+    assert plan.store == plan.pitch  # a compact map, or whole words
+    xt = tbin.words_to_torch(x)
+    maps = (fused_conv.compact_map_plain(xt, plan.pitch) if compact
+            else xt.reshape(3, -1))
+    assert maps.shape[1] == -(-side * side * plan.store // 32)
+    wt = tbin.words_to_torch(w)
+    np.testing.assert_array_equal(_dense_hd(maps, wt, meta, plan).numpy(),
+                                  want)
+    assert plan.runs == tuple(_kernel_word(meta, plan.pitch, d)
+                              for d in range(plan.words))
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_dense_plans_of_the_configs(name):
+    """The configs' conv stacks: the input compacted (thermometer width
+    <= 16), later layers on whole channel words; conv 1 of the paper's
+    CNNs in one 256-bit K step (a word a kernel row: HG's 36 bits and
+    MNIST's 72 in 3 words), conv 2 in two; 16 queries fit in shared
+    memory, two blocks an SM at the paper's widths."""
+    _, tc, _, _, tp = _pipes(name)
+    metas = tp.conv.metas
+    plans = fused_conv.dense_plans(metas)
+    assert plans[0].store == plans[0].pitch < 32
+    assert all(p.store == 32 * m.cw_in for p, m in zip(plans[1:], metas[1:]))
+    if name in ("hg-64", "mnist-28"):
+        assert [p.words for p in plans] == [3, 9]
+        assert [p.ksteps for p in plans] == [1, 2]
+    kw_q = (tp.layer_ws[0] if tp.layer_ws else tp.head.cam.rows_packed
+            ).shape[1]
+    tail = [w.shape[1] for w in tp.layer_ws[1:]] + (
+        [tp.head.cam.rows_packed.shape[1]] if tp.layer_ws else [])
+    buf0, buf1, nbytes, meta = fused_conv._layout(tuple(metas), kw_q,
+                                                  tuple(tail))
+    assert buf0 % 8 == 4 and buf1 % 8 == 4
+    assert len(meta) == 8 * len(metas)
+    assert nbytes <= fused_conv.SMEM_LIMIT // 2

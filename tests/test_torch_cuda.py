@@ -22,9 +22,15 @@ from repro_torch.spec import InferenceSpec
 pytestmark = pytest.mark.cuda
 
 # (M, N, K bits): single word, n_bits % 32 != 0, Kw below one 32-word
-# tile, ragged M/N, K over one tile, and the HG layer-1 shape
+# tile, ragged M/N, K over one tile, and the HG layer-1 shape; then the
+# edges of the tensor-core tile (32 x 128 outputs, K in 16-word chunks
+# of 8-word steps): M = 4095 / 4097, N = 10 / 20 (the heads) / 129,
+# Kw = 1, 6, 7 (odd: 4-byte copies), 36, 225 (the CNN FC shapes)
 GEMM_SHAPES = [(1, 1, 32), (8, 10, 192), (33, 7, 64), (20, 40, 300),
-               (5, 3, 1100), (4096, 128, 4096)]
+               (5, 3, 1100), (4096, 128, 4096),
+               (4095, 128, 225 * 32), (4097, 20, 6 * 32), (4096, 10, 6 * 32),
+               (4097, 129, 36 * 32), (4095, 129, 32), (33, 129, 7 * 32),
+               (100, 20, 7 * 32 - 5)]
 # hidden/head widths and bias cells: the three bank nets, a deep net, a
 # head-only net, MNIST and HG
 NETS = [(300, 192, 12, 64), (784, 64, 10, 64), (96, 32, 5, 32),
@@ -87,6 +93,19 @@ def test_binary_gemm_equals_plain(dev, m, n, k):
     torch.cuda.synchronize()
     assert binary_gemm.binary_gemm_hd.launches == before + 1
     assert torch.equal(got, binary_gemm.binary_gemm_hd_plain(x, w))
+
+
+@pytest.mark.parametrize("kw", [6, 7, 225])
+def test_binary_gemm_views_off_16_bytes_equal_plain(dev, kw):
+    """Row views whose first word is not on a 16-byte boundary: the
+    kernel's aligned granules reach back before the view and past it."""
+    rng = np.random.default_rng(kw)
+    x_full = _packed(rng, 4100, 32 * kw, dev)
+    w_full = _packed(rng, 131, 32 * kw, dev)
+    for lo in (1, 2, 3):
+        x, w = x_full[lo:lo + 4096], w_full[lo:]
+        assert torch.equal(binary_gemm.binary_gemm_hd(x, w),
+                           binary_gemm.binary_gemm_hd_plain(x, w))
 
 
 @pytest.mark.parametrize("form", ["int", "float", "sampled"])
@@ -290,6 +309,88 @@ def test_fused_conv_sign_at_zero_equals_plain(dev):
             *args[:4], fused_conv.bias_drive_words(64)))
 
 
+@pytest.mark.parametrize("name", sorted(CNNS))
+@pytest.mark.parametrize("b", [1, fused_conv.QUERIES_PER_BLOCK - 1,
+                               fused_conv.QUERIES_PER_BLOCK + 1])
+def test_fused_conv_block_edges_equal_plain(dev, name, b):
+    """Batches around one block's queries: a lone query, a block short
+    of one, and one query into a second block."""
+    cfg, _, pipe = _cnn(name, dev, seed=8)
+    x = torch.from_numpy(np.random.default_rng(b).random(
+        (b, cfg.n_in)).astype(np.float32)).to(dev)
+    args = _conv_args(pipe, x)
+    head = pipe.head
+    kw = dict(bias_cells=head.bias_cells, head_direct=not cfg.hidden)
+    before = (fused_conv.fused_conv_votes.launches,
+              fused_conv.conv_stage_packed.launches)
+    got = fused_conv.fused_conv_votes(*args, head.thresholds, **kw)
+    bias = head.bias_cells if not cfg.hidden else 0
+    stage = fused_conv.conv_stage_packed(*args[:4], bias_cells=bias)
+    torch.cuda.synchronize()
+    assert (fused_conv.fused_conv_votes.launches,
+            fused_conv.conv_stage_packed.launches) == (before[0] + 1,
+                                                       before[1] + 1)
+    assert torch.equal(got, fused_conv.fused_conv_votes_plain(
+        *args, head.thresholds, **kw))
+    assert torch.equal(stage, fused_conv.conv_stage_packed_plain(
+        *args[:4], fused_conv.bias_drive_words(bias) if bias else None))
+
+
+@pytest.mark.parametrize("b", [1, fused_conv.QUERIES_PER_BLOCK - 1,
+                               fused_conv.QUERIES_PER_BLOCK + 1, 199])
+def test_fused_conv_sign_at_zero_block_edges(dev, b):
+    """The sign-at-zero net (c_in = 2, C = 0) at the block's edges."""
+    cfg, _, pipe = _cnn("head-direct-10", dev, seed=6)
+    x = torch.from_numpy(np.random.default_rng(b + 1).random(
+        (b, cfg.n_in)).astype(np.float32)).to(dev)
+    args = list(_conv_args(pipe, x))
+    args[2] = [torch.zeros(32, dtype=torch.int32, device=dev)]
+    kw = dict(bias_cells=pipe.head.bias_cells, head_direct=True)
+    thr = pipe.head.thresholds
+    assert torch.equal(fused_conv.fused_conv_votes(*args, thr, **kw),
+                       fused_conv.fused_conv_votes_plain(*args, thr, **kw))
+    assert torch.equal(
+        fused_conv.conv_stage_packed(*args[:4], bias_cells=64),
+        fused_conv.conv_stage_packed_plain(
+            *args[:4], fused_conv.bias_drive_words(64)))
+
+
+# maps of 8 and 16 channels after the input (taps on whole, zero-padded
+# channel words) with a flatten that is not word-aligned; an input of 20
+# channels (whole words, not compacted); two 5x5 layers on 128 channels
+# (100 dense words a position, 13 K steps; filters fill most of shared
+# memory)
+ODD_MAPS = {
+    "narrow": (13, 5, ((3, 8, 1), (3, 16, 2)), (40,), 6),
+    "wide-input": (9, 20, ((3, 32, 2),), (16,), 4),
+    "wide-taps": (16, 2, ((3, 128, 1), (5, 128, 1), (5, 128, 1)), (8,), 3),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ODD_MAPS))
+@pytest.mark.parametrize("form", ["int", "float", "sampled"])
+def test_fused_conv_narrow_maps_equal_plain(dev, form, name):
+    side, width, convs, hidden, n_cls = ODD_MAPS[name]
+    cfg = convnet.CNNConfig(
+        side=side, encoding=binarize.InputEncoding("thermometer", width),
+        conv=tuple(convnet.ConvSpec(*c) for c in convs), hidden=hidden,
+        n_classes=n_cls)
+    pipe = build_cnn_pipeline(cfg, convnet.random_folded_cnn(cfg, seed=3),
+                              device=dev)
+    rng = np.random.default_rng(7)
+    b = 37
+    x = torch.from_numpy(rng.random((b, cfg.n_in)).astype(np.float32)).to(dev)
+    args = _conv_args(pipe, x)
+    head = pipe.head
+    thr, samples = _thresholds(form, rng, b, head.n_classes, head.cam.n_bits,
+                               dev)
+    kw = dict(bias_cells=head.bias_cells, thr_samples=samples)
+    assert torch.equal(fused_conv.fused_conv_votes(*args, thr, **kw),
+                       fused_conv.fused_conv_votes_plain(*args, thr, **kw))
+    assert torch.equal(fused_conv.conv_stage_packed(*args[:4]),
+                       fused_conv.conv_stage_packed_plain(*args[:4]))
+
+
 def test_fused_conv_guards(dev):
     # deeper than the kernel's conv cap
     deep = convnet.CNNConfig(
@@ -300,9 +401,10 @@ def test_fused_conv_guards(dev):
                               device=dev)
     with pytest.raises(ValueError, match="conv layers"):
         pipe.run(np.zeros((2, deep.n_in), np.float32), InferenceSpec())
-    # 8 queries of a 200 x 200 image overflow a block's shared memory
+    # 16 queries of a 400 x 400 image overflow a block's shared memory
+    # (the input compacted to 1 bit a pixel: 20 KB a query)
     wide = convnet.CNNConfig(
-        side=200, encoding=binarize.InputEncoding("thermometer", 1),
+        side=400, encoding=binarize.InputEncoding("thermometer", 1),
         conv=(convnet.ConvSpec(3, 32, 8),), hidden=(8,), n_classes=3)
     pipe = build_cnn_pipeline(wide, convnet.random_folded_cnn(wide, 0),
                               device=dev)
