@@ -8,8 +8,8 @@ exit 0):
 1. Print the card's name and power limit (nvidia-smi), build the CUDA
    kernels from the sources in this checkout, timed, with ptxas' report
    (registers, spills, shared memory) and each library's tensor-core
-   instructions in its SASS (`cuobjdump -sass`: IMMA, BMMA); kernels 1
-   and 4 must hold some.
+   instructions in its SASS (`cuobjdump -sass`: IMMA, BMMA); all four
+   libraries must hold some.
 2. Each kernel at the main path's shapes against its plain PyTorch
    version on the card: `torch.equal` is required.  Kernels 1-3 at the
    paper's MNIST 784-128-10 and Hand-Gesture 4096-128-20 MLPs, kernel 4
@@ -22,11 +22,15 @@ exit 0):
    query against the FC rows, then the head query).  Kernel time, plain
    time, and for kernel 1 the time of `torch._int_mm` on the unpacked ±1
    int8 operands (the same function, n - 2*HD; the port never calls it).
-   Each time stands beside PR 7's and beside its bound: the least time
-   over the popcount route and the int8 and 1-bit tensor-core routes,
-   each the larger of its operations and its bytes (`Card.bound_ms`).
+   Each time stands beside the previous version's and beside its bound:
+   the least time over the popcount route and the int8 and 1-bit
+   tensor-core routes, each the larger of its operations and its bytes
+   (`Card.bound_ms`).
    Then `run()` per call at each batch size, and the CNN input layer
-   (`InputEncoding.pack`) alone at B = 4096, in a `{"e2e": ...}` line.
+   (`InputEncoding.pack`) alone at B = 4096, in a `{"e2e": ...}` line,
+   and one `torch.profiler` pass over the HG MLP's `run()` at B = 4096
+   that splits the call into device-kernel time and the rest, in a
+   `{"profile": ...}` line.
 3. The main path, with every launch counter set to 0 just before it: the
    two MLPs and the two CNNs (random weights from numpy seeds,
    fold-style parity-adjusted C, 64 bias cells, the paper's 33
@@ -73,14 +77,14 @@ INT8_MACS_PER_CLK_SM = 4096
 # 1-bit products: unpublished; `mma.sync .b1` issues at the int8 rate with
 # 8x the bits (scripts/torch_mma_probe.py), so 8x the int8 peak
 B1_MACS_PER_CLK_SM = 8 * INT8_MACS_PER_CLK_SM
-# device times of PR 7's run (NVIDIA H100 80GB HBM3, 700 W), HG (MNIST):
-# kernels 2 and 3 keep their device code and are held to these
-PR7_MS = {"cam_vote": (0.0049, 0.0049), "fused_mlp_votes": (0.0571, 0.0131),
-          "binary_gemm_hd": (0.0236, 0.0071),
-          "fused_conv_votes": (0.8909, 0.1218),
-          "conv_stage_packed": (0.8118, 0.1084)}
-# the redesigned kernels' libraries must hold tensor-core products
-TENSOR_CORE_LIBS = ("binary_gemm", "fused_conv")
+# device times of the kernels' previous version (NVIDIA H100 80GB HBM3,
+# 700 W), HG (MNIST), printed beside this run's as "prev"
+PREV_MS = {"cam_vote": (0.0049, 0.0049), "fused_mlp_votes": (0.0567, 0.0129),
+           "binary_gemm_hd": (0.0067, 0.0055),
+           "fused_conv_votes": (0.1480, 0.0344),
+           "conv_stage_packed": (0.1362, 0.0301)}
+# every kernel's library must hold tensor-core products
+TENSOR_CORE_LIBS = ("binary_gemm", "cam_search", "fused_mlp", "fused_conv")
 REPLACES = {
     "binary_gemm_hd": "src/repro/kernels/binary_gemm.py:72",
     "cam_vote": "src/repro/kernels/cam_search.py:72",
@@ -158,6 +162,38 @@ def device_ms(fn, iters: int = 50, replays: int = 5):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (replays * iters)
+
+
+def profile_split(fn, iters: int) -> dict:
+    """One `torch.profiler` pass over `iters` calls: per call, the wall
+    time (host clock, ending in a synchronize), the device-kernel time
+    (the CUDA kernel events' durations) and the rest, with the kernels by
+    name.  On a CPU rehearsal the device side is empty."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+        torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+    kernels = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            kernels[e.name] = kernels.get(e.name, 0.0) + \
+                e.time_range.elapsed_us() / 1e3 / iters
+    dev_ms = sum(kernels.values())
+    return dict(call_ms=wall_ms, device_kernel_ms=dev_ms,
+                rest_ms=wall_ms - dev_ms,
+                device_share=dev_ms / wall_ms if wall_ms else None,
+                kernels=dict(sorted(kernels.items(), key=lambda kv: -kv[1])))
 
 
 class Card:
@@ -509,9 +545,9 @@ def run(dev: torch.device, b_main: int, batches, card: Card,
                            gen, card, mid, report, False)
     for k in ("fused_conv_votes", "conv_stage_packed"):
         for mid, row in report[k]["per_model"].items():
-            pr7 = PR7_MS[k][mid == "mnist_cnn"]
+            prev = PREV_MS[k][mid == "mnist_cnn"]
             print(f"  {mid:9s} {k:17s} {row['shape']}: kernel {row['ms']} ms "
-                  f"(PR 7: {pr7}; call {row['call_ms']:.4f} ms), plain "
+                  f"(prev {prev}; call {row['call_ms']:.4f} ms), plain "
                   f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
                   f"({row['bound_route']})")
     for mid, m in models.items():
@@ -603,9 +639,9 @@ def run(dev: torch.device, b_main: int, batches, card: Card,
             library_ms=None, max_abs_err=max(errs))
         for k in ("binary_gemm_hd", "cam_vote", "fused_mlp_votes"):
             row = report[k]["per_model"][mid]
-            pr7 = PR7_MS[k][mid == "mnist"]
+            prev = PREV_MS[k][mid == "mnist"]
             print(f"  {mid:5s} {k:16s} {row['shape']}: kernel "
-                  f"{row['ms']} ms (PR 7: {pr7}; call "
+                  f"{row['ms']} ms (prev {prev}; call "
                   f"{row['call_ms']:.4f} ms), plain "
                   f"{row['plain_ms']:.3f} ms, bound "
                   f"{row['bound_ms']:.4f} ms ({row['bound_route']}), library "
@@ -633,6 +669,16 @@ def run(dev: torch.device, b_main: int, batches, card: Card,
         print(f"  pack {mid:9s} B={b_main:5d}: {ms:.4f} ms "
               f"(device {dms} ms)")
     print(json.dumps({"e2e": e2e, "card": smi}))
+    # where the HG MLP's run() goes at the largest batch: device kernels
+    # against the rest of the call (host work, launches, waits)
+    xd = torch.from_numpy(models["hg"]["x"]).to(dev)
+    split = profile_split(lambda: models["hg"]["gpu"].run(xd, InferenceSpec()),
+                          20)
+    print(f"  profile hg B={b_main} run() votes: {split['call_ms']:.4f} ms "
+          f"a call, device kernels {split['device_kernel_ms']:.4f} ms, "
+          f"the rest {split['rest_ms']:.4f} ms")
+    print(json.dumps({"profile": {f"hg/B={b_main}/votes": split,
+                                  "card": smi}}))
 
     # ------------------------------------------------------ the main path
     specs = {"votes": InferenceSpec(),

@@ -11,18 +11,29 @@ noise slice).
 
 `cam_vote` launches the CUDA kernel of `csrc/cam_search.cu` for tensors
 on the card and runs `cam_vote_plain` for tensors on the CPU.  It
-replaces the Pallas kernel `repro/kernels/cam_search.py::cam_vote`.
+replaces the Pallas kernel `repro/kernels/cam_search.py::cam_vote`.  The
+kernel is the block program of kernels 2 and 3 (`csrc/mlp_block.cuh`)
+with no hidden layers: distances on the 1-bit tensor cores, and for the
+shared schedules a per-block table of the vote at every distance, whose
+host twin is `vote_table`.  `block_smem_bytes` is the host twin of the
+block program's shared-memory layout.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.binarize import WORD
 from repro_torch.kernels import _build
 from repro_torch.kernels.binary_gemm import _check_words, binary_gemm_hd_plain
 
 THR_INT, THR_FLOAT, THR_SAMPLED = 0, 1, 2
 MAX_PASSES = 256  # csrc/picbnn.cuh kMaxPasses
+SMEM_LIMIT = 232448  # bytes of shared memory a block may use on an H100
+QUERY_TILE = 16  # csrc/mlp_block.cuh: a tile holds whole m16 tiles
+VOTE_TABLE_MAX = 2048  # csrc/mlp_block.cuh kVoteTab
+CAM_BQ = 32  # csrc/cam_search.cu kBq: queries a tile, else QUERY_TILE
+ROWS_SMEM_MIN = 32 * 1024  # csrc/mlp_block.cuh kRowsSmemMin
 
 
 def normalize_thresholds(thresholds: torch.Tensor) -> torch.Tensor:
@@ -55,6 +66,49 @@ def vote_from_hd(hd: torch.Tensor, thresholds: torch.Tensor,
     if thresholds.is_floating_point():
         hd = hd.to(torch.float32)
     return (hd[:, :, None] <= thresholds).sum(-1, dtype=torch.int32)
+
+
+def vote_table_len(kw_head: int, sampled: bool) -> int:
+    """Entries of the block's vote table (csrc/mlp_block.cuh `mlp_launch`):
+    every distance of a kw_head-word head, at most VOTE_TABLE_MAX; none
+    for sampled thresholds, which differ per (query, row)."""
+    return 0 if sampled else min(WORD * kw_head + 1, VOTE_TABLE_MAX)
+
+
+def vote_table(thresholds: torch.Tensor, n: int) -> torch.Tensor:
+    """Host twin of the block's vote table: entry h is the vote of
+    distance h, for h < n, with the compare of `vote_from_hd` (integer
+    for an int32 schedule, float32(h) <= T for a float one).  A kernel
+    reads a distance h < n from the table and counts any other."""
+    thr = normalize_thresholds(thresholds)
+    hd = torch.arange(n, dtype=torch.int32, device=thr.device)[None, :]
+    return vote_from_hd(hd, thr)[0]
+
+
+def block_smem_bytes(kw0: int, later_kws, bq: int, vtab_n: int,
+                     row_shapes) -> tuple:
+    """Shared memory of the block program of kernels 2 and 3
+    (csrc/mlp_block.cuh `mlp_base_words`, picbnn.cuh `fill_tail`):
+    (bytes besides the rows, bytes of the rows).  Besides the rows: the
+    [P] schedule, the vote table, two input tiles of bq queries at a
+    stride of round8(kw0) + 4 words, and two activation buffers at the
+    widest later operand's.  The rows: each [n, kw] block padded to round8(n) rows at
+    round8(kw) + 4 words."""
+    def r8(n):
+        return -(-n // 8) * 8
+
+    ld_act = max([r8(kw) + 4 for kw in later_kws], default=0)
+    base = (MAX_PASSES + -(-vtab_n // 4) * 4
+            + 2 * bq * (r8(kw0) + 4 + ld_act))
+    rows = sum(r8(n) * (r8(kw) + 4) for n, kw in row_shapes)
+    return 4 * base, 4 * rows
+
+
+def rows_in_smem(base: int, rows: int) -> bool:
+    """Whether the block program stages its rows in shared memory (else
+    the stage reads them from global memory): rows of ROWS_SMEM_MIN bytes
+    or more that fit beside the rest (`block_smem_bytes`)."""
+    return ROWS_SMEM_MIN <= rows and base + rows <= SMEM_LIMIT
 
 
 def cam_vote_plain(q_packed, rows_packed, thresholds, thr_samples=None):
@@ -106,8 +160,10 @@ def cam_vote(q_packed: torch.Tensor, rows_packed: torch.Tensor,
                     ("thr_samples", thr_samples)):
         if t is not None and t.device != dev:
             raise ValueError(f"{name} is on {t.device}, queries on {dev}")
-    if -(-b // 32) > 65535:
-        raise ValueError(f"B = {b} exceeds the kernel grid")
+    vtab_n = vote_table_len(kw, thr_samples is not None)
+    if block_smem_bytes(kw, [], QUERY_TILE, vtab_n, [])[0] > SMEM_LIMIT:
+        raise ValueError(f"Kw = {kw} words: a tile of {QUERY_TILE} queries "
+                         "overflows shared memory")
     out = torch.empty((b, c), dtype=torch.int32, device=dev)
     if b == 0 or c == 0:
         return out

@@ -1,6 +1,6 @@
-// Tensor-core building blocks of kernels 1 and 4 (binary_gemm.cu,
-// fused_conv.cu): the 1-bit `mma.sync` product, and kernel 1's `cp.async`
-// copies.
+// Tensor-core building blocks of the four kernels: the 1-bit `mma.sync`
+// product, and the `cp.async` copies of kernel 1 and of the block program
+// of kernels 2 and 3 (mlp_block.cuh).
 //
 // Why 1-bit and not int8 operands: on the H100 a warp's
 // `mma.sync.m16n8k256.b1.and.popc` issues at the same rate as an int8

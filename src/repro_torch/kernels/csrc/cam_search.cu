@@ -8,69 +8,37 @@
 // a float32 [P] schedule (compared as float(hd) <= T), or a float32
 // [B, C, P] block of sampled thresholds.
 //
-// What bounds it on an H100: for the shared schedules, integer issue —
-// the popcount distance (16 __popc per clock per SM) plus P compares per
-// output; for the sampled form, reading the [B, C, P] float block from
-// device memory, which is larger than both packed operands together.
+// What bounds it on an H100: at the paper's heads (q[4096, 6] against 10
+// or 20 rows) the distances are 1-2 m16n8 tiles of one 256-bit K step a
+// query tile and the bytes (the queries in, the [B, C] votes out, about
+// 0.4 MB) take 0.1 us, so the launch and one block's chain of latencies
+// (stage, table, one tile) set its time.  The sampled form reads its
+// [B, C, P] float block, larger than both packed operands together.
 //
-// Design: kernel 1's 32 x 32 distance tile (picbnn.cuh `tile_hd`), then
-// each thread votes its four outputs with `vote_count`, the same device
-// function as the head stage of fused_mlp.cu.  The shared schedule sits in
-// shared memory; one template instance per threshold form.
-#include "picbnn.cuh"
+// Design: kernel 3's block program (mlp_block.cuh) with no hidden layers:
+// the class rows read from global memory through L1 (staged in shared
+// memory from 32 KB on, where they fit), the query tiles fetched with
+// cp.async, the distances on the 1-bit tensor cores (`mma.sync .b1
+// .and.popc`), and for the shared schedules a per-block table of the vote
+// at every distance, so a vote is one load.  Tiles hold kBq queries, 16
+// where kBq of them do not fit.
+#include "mlp_block.cuh"
 
 using namespace picbnn;
 
-template <int MODE>
-__global__ void __launch_bounds__(kTileThreads)
-cam_vote_kernel(const uint32_t* __restrict__ q,
-                const uint32_t* __restrict__ rows,
-                const uint32_t* __restrict__ thr,
-                const float* __restrict__ samples, int32_t* __restrict__ out,
-                int b, int c, int kw, int p) {
-  __shared__ uint32_t xs[kTile][kKt + 1];
-  __shared__ uint32_t ws[kTile][kKt + 1];
-  __shared__ uint32_t thr_s[kMaxPasses];
-  if (MODE != kThrSampled) load_thresholds(thr_s, thr, p);
-  __syncthreads();
-  const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
-  int acc[4];
-  tile_hd(q, rows, b, c, kw, m0, n0, xs, ws, acc);
-  const int col = n0 + threadIdx.x;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = m0 + threadIdx.y + 8 * i;
-    if (row < b && col < c) {
-      const float* s =
-          MODE == kThrSampled ? samples + ((size_t)row * c + col) * p : nullptr;
-      out[(size_t)row * c + col] = vote_count<MODE>(acc[i], thr_s, s, p);
-    }
-  }
-}
+constexpr int kBq = 32;  // queries a tile
 
 extern "C" int cam_vote_launch(const void* q, const void* rows, const void* thr,
                                const void* samples, void* out, int b, int c,
                                int kw, int p, int thr_mode, void* stream) {
-  dim3 grid((c + kTile - 1) / kTile, (b + kTile - 1) / kTile);
-  dim3 block(kTile, kTileThreads / kTile);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const uint32_t* qq = static_cast<const uint32_t*>(q);
-  const uint32_t* rr = static_cast<const uint32_t*>(rows);
-  const uint32_t* tt = static_cast<const uint32_t*>(thr);
-  const float* ss = static_cast<const float*>(samples);
-  int32_t* oo = static_cast<int32_t*>(out);
-  switch (thr_mode) {
-    case kThrInt:
-      cam_vote_kernel<kThrInt><<<grid, block, 0, st>>>(qq, rr, tt, ss, oo, b, c, kw, p);
-      break;
-    case kThrFloat:
-      cam_vote_kernel<kThrFloat><<<grid, block, 0, st>>>(qq, rr, tt, ss, oo, b, c, kw, p);
-      break;
-    case kThrSampled:
-      cam_vote_kernel<kThrSampled><<<grid, block, 0, st>>>(qq, rr, tt, ss, oo, b, c, kw, p);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  MlpNet net = {};
+  fill_tail(net.tail, 0, nullptr, nullptr, nullptr, nullptr, nullptr, rows, c,
+            kw, 0);
+  // the tiles alone (rows read from global) must fit at kBq, else at 16
+  net.bq = kBq;
+  net.ld_in = round8(kw) + 4;
+  net.vtab_n = thr_mode == kThrSampled ? 0 : std::min(32 * kw + 1, kVoteTab);
+  const int bq =
+      mlp_base_words(net) * sizeof(uint32_t) <= kSmemLimit ? kBq : 16;
+  return mlp_launch(net, q, b, kw, bq, thr, thr_mode, p, samples, out, stream);
 }

@@ -57,16 +57,16 @@
 //    the 32-channel word is assembled with two quad shuffles (bit 31
 //    read as uint32) and written by lanes t = 0 (row g) and t = 1
 //    (row g + 8).
-//  * FC layers and head: M = the block's 16 queries, N in n8 tiles (one
-//    per warp item), B read from global (L2) straight into fragments;
-//    FC sign bits are ORed into zeroed words in shared memory; the head
+//  * FC layers and head: the FC/head stage of fc_stage.cuh, shared with
+//    kernels 2 and 3: M = the block's 16 queries, N in n8 tiles (one per
+//    warp item), B read from global (L2) straight into fragments; FC
+//    sign bits are ORed into zeroed words in shared memory; the head
 //    votes with `vote_count`.
 //  * Maps live in shared memory as a ping-pong pair (map i in half
 //    i % 2), query strides of 4 mod 8 words.  Depth is capped at
 //    kMaxConv conv and kMaxLayers FC layers; the wrapper raises above
 //    them and where 16 queries do not fit in 227 KB.
-#include "bmma.cuh"
-#include "picbnn.cuh"
+#include "fc_stage.cuh"
 
 using namespace picbnn;
 
@@ -75,7 +75,6 @@ constexpr int kConvThreads = 512;  // 16 warps per block, two blocks an SM
 constexpr int kQB = 16;            // queries per block
 constexpr int kStage = 3;          // mode: write the flattened query
 constexpr int kMetaInts = 8;       // ints per conv layer from the host
-constexpr size_t kSmemLimit = 232448;  // bytes a block may use on an H100
 
 struct ConvLayer {
   const uint32_t* w;  // [c_out, k*k*cw_in] tap-major rows
@@ -106,10 +105,6 @@ struct ConvNet {
   int pos_words;   // ints of the position tables
   int hd_words;    // ints of the per-channel largest distances
 };
-
-__device__ __forceinline__ uint32_t low_bits(int n) {
-  return n >= 32 ? 0xffffffffu : (1u << n) - 1u;
-}
 
 // Dense word d of layer L's K vectors as one run of map bits: (its first
 // bit past the position's first pixel, the mask of its length).  On the
@@ -162,41 +157,6 @@ __device__ __forceinline__ uint32_t dense_filter_word(const ConvLayer& L,
   for (int dx = dx0; dx < L.k && dx < dx0 + per; ++dx)
     v |= (__ldg(row + dy * L.k + dx) & low_bits(L.pitch))
          << ((dx - dx0) * L.pitch);
-  return v;
-}
-
-// One m16 tile of FC (or head) distances: rows = queries mt*16 + g (+8)
-// of `act` (query stride `ld`, `kw` words), columns n0 + g of the packed
-// rows `w` [n, kw] read from global.
-__device__ __forceinline__ void fc_tile(int (&acc)[4], const uint32_t* act,
-                                        int ld, int mt, const uint32_t* w,
-                                        int n, int kw, int n0) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const uint32_t* rg = act + (mt * 16 + g) * ld;
-  const uint32_t* rh = rg + 8 * ld;
-  const int col = n0 + g;
-  const uint32_t* wr = w + (size_t)(col < n ? col : 0) * kw;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) acc[i] = 0;
-#pragma unroll 4
-  for (int k0 = 0; k0 < kw; k0 += 8) {  // warp-uniform: mma is collective
-    const int k = k0 + t;
-    const bool in0 = k < kw, in4 = k + 4 < kw;
-    uint32_t a[4] = {in0 ? rg[k] : 0u, in0 ? rh[k] : 0u,
-                     in4 ? rg[k + 4] : 0u, in4 ? rh[k + 4] : 0u};
-    uint32_t na[4];
-    complement(na, a);
-    const uint32_t b0 = col < n && in0 ? __ldg(wr + k) : 0u;
-    const uint32_t b1 = col < n && in4 ? __ldg(wr + k + 4) : 0u;
-    bmma_hd(acc, a, na, b0, b1);
-  }
-}
-
-// The quad's sign bits of one tile row ORed into one word (lane bits
-// are disjoint).
-__device__ __forceinline__ uint32_t quad_or(uint32_t v) {
-  v |= __shfl_xor_sync(0xffffffffu, v, 1);
-  v |= __shfl_xor_sync(0xffffffffu, v, 2);
   return v;
 }
 
@@ -391,63 +351,11 @@ fused_conv_kernel(const uint32_t* __restrict__ x, const __grid_constant__ ConvNe
     return;
   }
 
-  const MlpTail& T = net.tail;
-  for (int l = 0; l < T.n_layers; ++l) {
-    const Layer& L = T.layers[l];
-    for (int e = tid; e < kQB * L.kw_out; e += blockDim.x) {
-      // zero words, with the bias drive ones after the last layer's
-      // neurons: bits [n_out, n_out + tail_bias) of the row
-      const int r = e / L.kw_out, i = e % L.kw_out;
-      const int lo_b = max(L.n_out - 32 * i, 0);
-      const int hi_b = min(L.n_out + L.tail_bias - 32 * i, 32);
-      nxt[r * ld_nxt + i] =
-          hi_b > lo_b ? low_bits(hi_b) & ~low_bits(lo_b) : 0u;
-    }
-    __syncthreads();
-    const int ntiles = (L.n_out + 7) / 8;
-    for (int it = warp; it < ntiles; it += n_warps) {
-      int acc[4];
-      fc_tile(acc, cur, ld_cur, 0, L.w, L.n_out, L.kw_in, it * 8);
-      uint32_t lo = 0u, hi = 0u;
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int jn = it * 8 + 2 * t + e;
-        if (jn < L.n_out) {
-          const int cj = __ldg(L.c + jn);
-          lo |= (uint32_t)(L.n_bits - 2 * acc[e] + cj >= 0) << (jn & 31);
-          hi |= (uint32_t)(L.n_bits - 2 * acc[2 + e] + cj >= 0) << (jn & 31);
-        }
-      }
-      lo = quad_or(lo);
-      hi = quad_or(hi);
-      if (t == 0) atomicOr(nxt + g * ld_nxt + it / 4, lo);
-      if (t == 1) atomicOr(nxt + (g + 8) * ld_nxt + it / 4, hi);
-    }
-    __syncthreads();
-    uint32_t* tp = cur;
-    cur = nxt;
-    nxt = tp;
-    const int tl = ld_cur;
-    ld_cur = ld_nxt;
-    ld_nxt = tl;
-  }
-
-  const int ctiles = (T.n_classes + 7) / 8;
-  for (int it = warp; it < ctiles; it += n_warps) {
-    int acc[4];
-    fc_tile(acc, cur, ld_cur, 0, T.head, T.n_classes, T.kw_head, it * 8);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int cls = it * 8 + 2 * t + (e & 1), row = b0 + g + 8 * (e >> 1);
-      if (cls < T.n_classes && row < b) {
-        const float* s = MODE == kThrSampled
-                             ? samples + ((size_t)row * T.n_classes + cls) * p
-                             : nullptr;
-        out[(size_t)row * T.n_classes + cls] =
-            vote_count<MODE == kStage ? kThrInt : MODE>(acc[e], thr_s, s, p);
-      }
-    }
-  }
+  // the FC layers and the head vote (fc_stage.cuh, shared with kernels 2
+  // and 3): one n8 tile a warp item, rows read from global memory
+  fc_stage<MODE == kStage ? kThrInt : MODE, 1, true>(
+      net.tail, nullptr, cur, ld_cur, nxt, ld_nxt, cur, ld_cur, 1, b0, b,
+      thr_s, nullptr, 0, samples, p, out);
 }
 
 // conv_meta: n_conv x kMetaInts ints, per layer (side, cw_in, k, stride,
@@ -517,7 +425,7 @@ extern "C" int fused_conv_launch(
   }
   net.filt_words = foff;
   fill_tail(net.tail, n_layers, ws_v, cs_v, n_bits_v, n_out_v, kw_v, head,
-            n_classes, kw_head, bias_cells, kw_q);
+            n_classes, kw_head, bias_cells);
 
   void (*fn)(const uint32_t*, const ConvNet, const uint32_t*, const float*,
              int32_t*, int, int);

@@ -10,50 +10,33 @@
 // then the head distance and the P-threshold vote.  Only the packed input
 // enters and only the [B, C] int32 votes leave device memory.
 //
-// What bounds it on an H100: integer issue.  At MNIST (784-128-10) a query
-// costs 128*25 + 10*6 word XOR-popcounts against 100 bytes in and 40 out,
-// so the 16-per-clock-per-SM __popc rate, not the 3.35 TB/s of memory,
-// sets the floor; at small batches launch latency dominates both.
+// What bounds it on an H100: bytes, then latency.  Every product runs on
+// the 1-bit tensor cores (`mma.sync .b1 .and.popc`, two per 256-bit K step
+// for a Hamming distance, bmma.cuh): the HG net (4096-128-20) is 2 x 5.2e5
+// bit-MACs a query, 2 x 2.1e9 at B = 4096, about 1 us at 19,044 bit-MACs
+// per clock per SM, against 0.6 us to read its 2 MB of packed input at
+// 3.35 TB/s.  At that size what remains is latency: the launch (1.2 us),
+// staging the schedule, the vote table and the first tile (about 2 us),
+// the HG rows (about 2 us), and one tile's chain of K steps
+// (scripts/torch_mlp_tiles.py cuts the kernel after each phase).
 //
-// Design: one block of 256 threads per tile of `bq` queries.  The tile's
-// activation words live in a ping-pong pair of shared-memory buffers sized
-// to the widest layer.  The layers and the head vote are `mlp_tail`
-// (picbnn.cuh), which kernel 4 shares: a warp produces one output word for
-// kQ = 8 queries at a time, lane l owning neuron j = 32*word + l, and the
-// sign bits become words with __ballot_sync.  Hidden depth is bounded by
-// kMaxLayers; the wrapper raises above it.
-#include "picbnn.cuh"
+// Design: the block program of mlp_block.cuh, shared with kernel 2, on
+// the FC/head stage of fc_stage.cuh, shared with kernel 4.  A block of 32
+// warps stages the shared schedule, a table of the vote at every head
+// distance (so a vote is one load, not P compares), and, where they take
+// 32 KB or more and fit (the HG MLP's 67 KB), every layer's rows and the
+// head rows (cp.async, zero-padded to whole n8 tiles and K steps, row
+// stride 4 mod 8 words); smaller rows (the MNIST MLP's 19 KB) are read
+// from global memory through L1.  It then walks its tiles of `bq` queries
+// (bq / 16 m16 tiles), fetching the next tile's input words with cp.async
+// while the current one runs.  A warp item is one m16 tile by one n8 tile
+// of neurons: at bq = 32 and 128 neurons, one item a warp.  The sign is
+// one compare against the neuron's limit (n_bits + C) >> 1; two quad
+// shuffles assemble the bits, which are ORed into the output word.
+// Hidden depth is bounded by kMaxLayers; the wrapper raises above it.
+#include "mlp_block.cuh"
 
 using namespace picbnn;
-
-constexpr int kThreads = 256;  // 8 warps per block
-
-struct Net {
-  MlpTail tail;
-  int kw0, max_kw;
-};
-
-template <int MODE>
-__global__ void __launch_bounds__(kThreads)
-fused_mlp_kernel(const uint32_t* __restrict__ x, const Net net,
-                 const uint32_t* __restrict__ thr,
-                 const float* __restrict__ samples, int32_t* __restrict__ out,
-                 int b, int p, int bq) {
-  extern __shared__ uint32_t smem[];
-  uint32_t* thr_s = smem;
-  uint32_t* cur = smem + kMaxPasses;
-  uint32_t* nxt = cur + bq * net.max_kw;
-  const int tid = threadIdx.x;
-  const int b0 = blockIdx.x * bq;
-
-  if (MODE != kThrSampled) load_thresholds(thr_s, thr, p);
-  for (int e = tid; e < bq * net.kw0; e += blockDim.x) {
-    const int r = e / net.kw0;
-    cur[e] = (b0 + r < b) ? x[(size_t)b0 * net.kw0 + e] : 0u;
-  }
-  __syncthreads();
-  mlp_tail<MODE>(net.tail, cur, nxt, thr_s, samples, out, b, b0, p, bq);
-}
 
 extern "C" int fused_mlp_votes_launch(
     const void* x, int b, int kw0, int n_layers, const void* ws_v,
@@ -61,31 +44,11 @@ extern "C" int fused_mlp_votes_launch(
     const void* kw_v, const void* head, int n_classes, int kw_head,
     int bias_cells, const void* thr, int thr_mode, int p, const void* samples,
     void* out, int bq, void* stream) {
-  if (n_layers < 0 || n_layers > kMaxLayers || bq <= 0 || bq % kQ != 0 ||
-      p < 0 || p > kMaxPasses)
+  if (n_layers < 0 || n_layers > kMaxLayers)
     return static_cast<int>(cudaErrorInvalidValue);
-  Net net = {};
-  net.kw0 = kw0;
-  net.max_kw = fill_tail(net.tail, n_layers, ws_v, cs_v, n_bits_v, n_out_v,
-                         kw_v, head, n_classes, kw_head, bias_cells, kw0);
-
-  void (*fn)(const uint32_t*, const Net, const uint32_t*, const float*,
-             int32_t*, int, int, int);
-  switch (thr_mode) {
-    case kThrInt: fn = fused_mlp_kernel<kThrInt>; break;
-    case kThrFloat: fn = fused_mlp_kernel<kThrFloat>; break;
-    case kThrSampled: fn = fused_mlp_kernel<kThrSampled>; break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const size_t smem = (kMaxPasses + 2 * (size_t)bq * net.max_kw) * sizeof(uint32_t);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int grid = (b + bq - 1) / bq;
-  fn<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(x), net, static_cast<const uint32_t*>(thr),
-      static_cast<const float*>(samples), static_cast<int32_t*>(out), b, p, bq);
-  return static_cast<int>(cudaGetLastError());
+  MlpNet net = {};
+  fill_tail(net.tail, n_layers, ws_v, cs_v, n_bits_v, n_out_v, kw_v, head,
+            n_classes, kw_head, bias_cells);
+  return mlp_launch(net, x, b, kw0, bq, thr, thr_mode, p, samples, out,
+                    stream);
 }

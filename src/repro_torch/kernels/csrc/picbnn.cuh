@@ -1,6 +1,9 @@
-// Device code shared by the four PiC-BNN kernels (binary_gemm.cu,
-// cam_search.cu, fused_mlp.cu, fused_conv.cu).  Each .cu file is built on
-// its own into a shared library with a plain C interface (see
+// Definitions shared by the four PiC-BNN kernels (binary_gemm.cu,
+// cam_search.cu, fused_mlp.cu, fused_conv.cu): the threshold forms and the
+// vote (kernels 2, 3 and 4), and the FC/head description (`MlpTail`)
+// that the FC/head stage of fc_stage.cuh reads (kernels 2, 3 and 4).  The
+// tensor-core product is in bmma.cuh (kernels 1-4).  Each .cu file is
+// built on its own into a shared library with a plain C interface (see
 // kernels/_build.py).
 //
 // Packed words arrive as int32 tensors holding the bit pattern of
@@ -14,6 +17,7 @@ namespace picbnn {
 
 // Most thresholds a vote compares against (the paper's sweep has 33).
 constexpr int kMaxPasses = 256;
+constexpr size_t kSmemLimit = 232448;  // bytes a block may use on an H100
 
 // How the vote reads its thresholds (the three forms of the reference):
 //   kThrInt     [P] int32 schedule, compare hd <= T as integers
@@ -24,8 +28,9 @@ enum ThrMode : int { kThrInt = 0, kThrFloat = 1, kThrSampled = 2 };
 // Algorithm-1 vote for one (query, row) Hamming distance:
 // #{t : hd <= T_t}.  `thr_s` is the shared schedule staged in shared
 // memory as raw 32-bit words; `samples` points at this pair's P sampled
-// thresholds (kThrSampled only).  Shared by cam_vote (kernel 2) and the
-// head stage of fused_mlp_votes (kernel 3).
+// thresholds (kThrSampled only).  The head stage of kernels 2, 3 and 4
+// (fc_stage.cuh `head_votes`) calls it, and kernels 2 and 3 tabulate it
+// over every distance of their head for the shared schedules.
 template <int MODE>
 __device__ __forceinline__ int vote_count(int hd, const uint32_t* thr_s,
                                           const float* samples, int p) {
@@ -53,49 +58,12 @@ __device__ __forceinline__ void load_thresholds(uint32_t* thr_s,
   for (int i = tid; i < p; i += nt) thr_s[i] = thr[i];
 }
 
-// Pairwise Hamming-distance tile used by kernel 2 (cam_search.cu).
-// A block of 32 x 8 threads owns a 32 x 32 output tile; thread (tx, ty)
-// computes rows m0 + ty + 8*i (i < 4) against column n0 + tx.  K is
-// walked in steps of kKt words staged in shared memory; ragged M, N and
-// K edges are filled with zero words, which add nothing to a distance.
-constexpr int kTile = 32;
-constexpr int kKt = 32;
-constexpr int kTileThreads = 256;
+// The FC layers and head of a net as the FC/head stage reads them
+// (fc_stage.cuh, shared by kernels 2, 3 and 4); `fill_tail` fills it from
+// the launcher's host arrays.
+constexpr int kMaxLayers = 8;  // hidden FC layers the stage carries
 
-__device__ __forceinline__ void tile_hd(const uint32_t* __restrict__ x,
-                                        const uint32_t* __restrict__ w,
-                                        int m, int n, int kw, int m0, int n0,
-                                        uint32_t (*xs)[kKt + 1],
-                                        uint32_t (*ws)[kKt + 1],
-                                        int acc[4]) {
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * kTile + tx;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) acc[i] = 0;
-  for (int k0 = 0; k0 < kw; k0 += kKt) {
-    for (int e = tid; e < kTile * kKt; e += kTileThreads) {
-      const int r = e / kKt, k = e % kKt, gk = k0 + k;
-      const int xm = m0 + r, wn = n0 + r;
-      xs[r][k] = (xm < m && gk < kw) ? x[(size_t)xm * kw + gk] : 0u;
-      ws[r][k] = (wn < n && gk < kw) ? w[(size_t)wn * kw + gk] : 0u;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < kKt; ++k) {
-      const uint32_t wv = ws[tx][k];  // stride 33: no bank conflicts
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[i] += __popc(xs[ty + 8 * i][k] ^ wv);
-    }
-    __syncthreads();
-  }
-}
-
-// ---------------------------------------------------------------------
-// The FC/head tail of kernel 3 (fused_mlp.cu).  Kernel 4 fills the same
-// MlpTail (`fill_tail`) and runs its own tail on the tensor cores.
-// ---------------------------------------------------------------------
-constexpr int kMaxLayers = 8;  // hidden FC layers the tail carries
-constexpr int kQ = 8;          // queries a warp carries per output word
+__host__ __device__ __forceinline__ int round8(int n) { return (n + 7) & ~7; }
 
 struct Layer {
   const uint32_t* w;  // [n_out, kw_in] packed weight rows
@@ -105,102 +73,26 @@ struct Layer {
   int kw_in;          // words per input row
   int kw_out;         // words per output row (next operand's width)
   int tail_bias;      // ones appended after the neurons (last layer only)
+  int ldw;            // row stride of the rows in shared memory (words)
+  int soff;           // their offset in the block's row region (words)
 };
 
 struct MlpTail {
   Layer layers[kMaxLayers];
   const uint32_t* head;  // [n_classes, kw_head] class rows, bias cells incl.
   int n_layers, n_classes, kw_head;
+  int head_ldw, head_soff;  // the head rows in shared memory, as in Layer
+  int rows_words;           // words of every layer's rows and the head's
 };
 
-// Hidden layers and head vote for the block's `bq` queries (a multiple of
-// kQ) that start at batch row b0.  On entry `cur` holds the queries'
-// packed words densely (query r at r * kw, kw the first operand's width);
-// `nxt` is the other half of the shared-memory ping-pong pair, each half
-// at least bq times the widest stage.  Per hidden layer a warp produces
-// one output word for kQ queries at a time: lane l owns neuron
-// j = 32*word + l, reads its weight row once (read-only cache) for all kQ
-// queries, whose words broadcast from shared memory, and keeps kQ
-// distances in registers.  The sign bits become words with
-// __ballot_sync, bit l from lane l: exactly the little-endian repack of
-// the reference.  The head votes with `vote_count`.  Rows >= b are
-// computed but not written.
-template <int MODE>
-__device__ __forceinline__ void mlp_tail(const MlpTail& net, uint32_t* cur,
-                                         uint32_t* nxt, const uint32_t* thr_s,
-                                         const float* __restrict__ samples,
-                                         int32_t* __restrict__ out, int b,
-                                         int b0, int p, int bq) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int n_warps = blockDim.x >> 5;
-  const int groups = bq / kQ;
-
-  for (int l = 0; l < net.n_layers; ++l) {
-    const Layer L = net.layers[l];
-    for (int it = warp; it < L.kw_out * groups; it += n_warps) {
-      const int ow = it / groups, g = it % groups;
-      const int j = ow * 32 + lane;
-      int acc[kQ];
-#pragma unroll
-      for (int r = 0; r < kQ; ++r) acc[r] = 0;
-      if (j < L.n_out) {
-        const uint32_t* wr = L.w + (size_t)j * L.kw_in;
-        const uint32_t* xq = cur + g * kQ * L.kw_in;
-        for (int k = 0; k < L.kw_in; ++k) {
-          const uint32_t wv = __ldg(wr + k);
-#pragma unroll
-          for (int r = 0; r < kQ; ++r) acc[r] += __popc(xq[r * L.kw_in + k] ^ wv);
-        }
-      }
-      const int cj = j < L.n_out ? __ldg(L.c + j) : 0;
-#pragma unroll
-      for (int r = 0; r < kQ; ++r) {
-        const bool bit = j < L.n_out ? (L.n_bits - 2 * acc[r] + cj >= 0)
-                                     : (j < L.n_out + L.tail_bias);
-        const uint32_t word = __ballot_sync(0xffffffffu, bit);
-        if (lane == r) nxt[(g * kQ + r) * L.kw_out + ow] = word;
-      }
-    }
-    __syncthreads();
-    uint32_t* t = cur;
-    cur = nxt;
-    nxt = t;
-  }
-
-  const int cwords = (net.n_classes + 31) / 32;
-  for (int it = warp; it < cwords * groups; it += n_warps) {
-    const int cw = it / groups, g = it % groups;
-    const int cls = cw * 32 + lane;
-    if (cls >= net.n_classes) continue;
-    int acc[kQ];
-#pragma unroll
-    for (int r = 0; r < kQ; ++r) acc[r] = 0;
-    const uint32_t* hr = net.head + (size_t)cls * net.kw_head;
-    const uint32_t* xq = cur + g * kQ * net.kw_head;
-    for (int k = 0; k < net.kw_head; ++k) {
-      const uint32_t hv = __ldg(hr + k);
-#pragma unroll
-      for (int r = 0; r < kQ; ++r) acc[r] += __popc(xq[r * net.kw_head + k] ^ hv);
-    }
-#pragma unroll
-    for (int r = 0; r < kQ; ++r) {
-      const int row = b0 + g * kQ + r;
-      if (row < b) {
-        const float* s = MODE == kThrSampled
-                             ? samples + ((size_t)row * net.n_classes + cls) * p
-                             : nullptr;
-        out[(size_t)row * net.n_classes + cls] = vote_count<MODE>(acc[r], thr_s, s, p);
-      }
-    }
-  }
-}
-
-// Fill an MlpTail from the launcher's host arrays; returns the widest
-// operand in words (at least `kw0`, the input width).
-inline int fill_tail(MlpTail& t, int n_layers, const void* ws_v,
-                     const void* cs_v, const void* n_bits_v,
-                     const void* n_out_v, const void* kw_v, const void* head,
-                     int n_classes, int kw_head, int bias_cells, int kw0) {
+// Fill an MlpTail from the launcher's host arrays.  Rows in shared
+// memory (kernels 2 and 3 where they fit) sit one layer after the other,
+// zero-padded to whole n8 tiles and 8-word K steps, at a row stride of
+// 4 mod 8 words.
+inline void fill_tail(MlpTail& t, int n_layers, const void* ws_v,
+                      const void* cs_v, const void* n_bits_v,
+                      const void* n_out_v, const void* kw_v, const void* head,
+                      int n_classes, int kw_head, int bias_cells) {
   const void* const* ws = static_cast<const void* const*>(ws_v);
   const void* const* cs = static_cast<const void* const*>(cs_v);
   const int* n_bits = static_cast<const int*>(n_bits_v);
@@ -210,7 +102,7 @@ inline int fill_tail(MlpTail& t, int n_layers, const void* ws_v,
   t.head = static_cast<const uint32_t*>(head);
   t.n_classes = n_classes;
   t.kw_head = kw_head;
-  int max_kw = kw0 > kw_head ? kw0 : kw_head;
+  int off = 0;
   for (int l = 0; l < n_layers; ++l) {
     Layer& L = t.layers[l];
     L.w = static_cast<const uint32_t*>(ws[l]);
@@ -220,9 +112,13 @@ inline int fill_tail(MlpTail& t, int n_layers, const void* ws_v,
     L.kw_in = kw[l];
     L.kw_out = l + 1 < n_layers ? kw[l + 1] : kw_head;
     L.tail_bias = l + 1 < n_layers ? 0 : bias_cells;
-    if (kw[l] > max_kw) max_kw = kw[l];
+    L.ldw = round8(L.kw_in) + 4;
+    L.soff = off;
+    off += round8(L.n_out) * L.ldw;
   }
-  return max_kw;
+  t.head_ldw = round8(kw_head) + 4;
+  t.head_soff = off;
+  t.rows_words = off + round8(n_classes) * t.head_ldw;
 }
 
 }  // namespace picbnn

@@ -7,9 +7,11 @@
 
 Only the packed input enters and only the [B, C] int32 votes leave device
 memory.  `fused_mlp_votes` launches the CUDA kernel of
-`csrc/fused_mlp.cu` for tensors on the card and runs
-`fused_mlp_votes_plain`, the same arithmetic in plain PyTorch, for
-tensors on the CPU.  It replaces the Pallas kernel
+`csrc/fused_mlp.cu` (the block program of `csrc/mlp_block.cuh` on the
+FC/head stage of `csrc/fc_stage.cuh`, on the 1-bit tensor cores) for tensors on the card
+and runs `fused_mlp_votes_plain`, the same arithmetic in plain PyTorch,
+for tensors on the CPU.  `sign_limit` is the host twin of the kernel's
+sign epilogue.  It replaces the Pallas kernel
 `repro/kernels/fused_mlp.py::fused_mlp_votes` and keeps its shape guards.
 """
 
@@ -24,17 +26,19 @@ from repro_torch.core.binarize import WORD, pack_bits
 from repro_torch.kernels import _build
 from repro_torch.kernels.binary_gemm import _check_words, binary_gemm_hd_plain
 from repro_torch.kernels.cam_search import (
+    QUERY_TILE,
+    SMEM_LIMIT,
     THR_FLOAT,
     THR_INT,
     THR_SAMPLED,
+    block_smem_bytes,
     check_samples,
     normalize_thresholds,
     vote_from_hd,
+    vote_table_len,
 )
 
-MAX_LAYERS = 8  # csrc/fused_mlp.cu kMaxLayers
-QUERIES_PER_WARP = 8  # csrc/fused_mlp.cu kQ: bq must be a multiple
-SMEM_LIMIT = 232448  # bytes of shared memory a block may use on an H100
+MAX_LAYERS = 8  # csrc/picbnn.cuh kMaxLayers
 
 
 def _validate(x_packed, layer_ws, layer_cs, layer_n_bits, head_rows,
@@ -99,6 +103,27 @@ def tail_arrays(ws, cs, layer_n_bits) -> tuple:
             (ctypes.c_int * k)(*[w.shape[1] for w in ws]))
 
 
+def sign_limit(n_bits: int, c) -> torch.Tensor:
+    """Host twin of the FC stage's sign epilogue (csrc/fc_stage.cuh
+    `fc_layer`): the largest distance whose bit is set, (n_bits + C) >> 1
+    as int32.  The shift is arithmetic, so a negative n_bits + C gives a
+    negative limit and sets no bit; `hd <= sign_limit(n_bits, C)` is the
+    reference's `n_bits - 2*hd + C >= 0` for every integer hd."""
+    return (n_bits + torch.as_tensor(c).to(torch.int32)) >> 1
+
+
+def mlp_smem_bytes(kw0: int, layer_ws, head_rows, bq: int,
+                   sampled: bool) -> tuple:
+    """Kernel 3's shared memory per block (csrc/mlp_block.cuh
+    `mlp_launch`): (bytes besides the rows, bytes of every layer's rows
+    and the head's).  `cam_search.rows_in_smem` says where the rows go."""
+    later = [w.shape[1] for w in layer_ws[1:]] + (
+        [head_rows.shape[1]] if layer_ws else [])
+    return block_smem_bytes(
+        kw0, later, bq, vote_table_len(head_rows.shape[1], sampled),
+        [tuple(w.shape) for w in (*layer_ws, head_rows)])
+
+
 def fused_mlp_votes_plain(x_packed, layer_ws, layer_cs, layer_n_bits,
                           head_rows, thresholds, *, bias_cells: int,
                           thr_samples=None):
@@ -147,7 +172,9 @@ def fused_mlp_votes(x_packed: torch.Tensor,
     head_rows   : [C, Kw_h] int32 packed class rows (bias cells included)
     thresholds  : [P] HD tolerances (int32, or float32 compared as float)
     bias_cells  : bias searchlines appended to the head query
-    bq          : queries per thread block on the card (multiple of 8)
+    bq          : queries a block holds at once on the card (a tile of
+                  bq / 16 m16 tiles; a multiple of 16); blocks walk the
+                  batch's tiles
     thr_samples : optional [B, C, P] float32 sampled thresholds
     returns     : [B, C] int32 vote counts
 
@@ -170,14 +197,16 @@ def fused_mlp_votes(x_packed: torch.Tensor,
     if n_layers > MAX_LAYERS:
         raise ValueError(f"{n_layers} hidden layers > the kernel's "
                          f"{MAX_LAYERS}")
-    if bq <= 0 or bq % QUERIES_PER_WARP:
+    if bq <= 0 or bq % QUERY_TILE:
         raise ValueError(f"bq must be a positive multiple of "
-                         f"{QUERIES_PER_WARP}, got {bq}")
+                         f"{QUERY_TILE}, got {bq}")
     b, kw0 = x_packed.shape
     n_classes, kw_head = head_rows.shape
     kws = [w.shape[1] for w in layer_ws]
     max_kw = max([kw0, kw_head, *kws])
-    if 4 * (256 + 2 * bq * max_kw) > SMEM_LIMIT:
+    base, _ = mlp_smem_bytes(kw0, layer_ws, head_rows, bq,
+                             thr_samples is not None)
+    if base > SMEM_LIMIT:  # even with the rows read from global memory
         raise ValueError(f"bq {bq} x {max_kw} words overflows shared memory")
     thr = normalize_thresholds(thresholds).to(dev).contiguous()
     p = thr.shape[0]

@@ -172,6 +172,186 @@ def test_fused_mlp_guards(dev):
                                   bias_cells=0, bq=12)
 
 
+# kernels 2 and 3 on the FC/head stage: nets at the tiles' edges (100
+# hidden neurons, not a multiple of 8; 20 and 100 classes; rows read from
+# global memory, and rows of 55 KB staged in shared memory), eight hidden
+# layers of odd widths, and a 512-neuron layer on the HG input, whose
+# rows do not fit in shared memory (read from global memory)
+EDGE_NETS = [(200, 100, 20, 64), (96, 40, 100, 32), (4096, 100, 100, 32)]
+DEEP_NET = (64, 48, 40, 33, 96, 20, 64, 128, 70, 12, 32)
+WIDE_NET = (4096, 512, 20, 64)
+
+
+def _mlp_args(sizes, bias, b, form, dev, seed=2, p=None):
+    """Kernel 3's operands for a random net: packed ±1 queries, the
+    pipeline's rows and C's, and a threshold form (`p` thresholds in
+    steps of 1 where given, else the paper's 33 in steps of 2)."""
+    pipe = tpipe.compile_pipeline(_folded(sizes, 11, bias),
+                                  ensemble.EnsembleConfig(bias_cells=bias),
+                                  device=dev)
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.choice([-1.0, 1.0], (b, sizes[0])).astype(
+        np.float32)).to(dev)
+    k = sizes[-2] + bias
+    if p is None:
+        thr, samples = _thresholds(form, rng, b, sizes[-1], k, dev)
+    else:
+        base = k // 2 - p // 2 + np.arange(p)
+        samples = None
+        if form == "sampled":
+            samples = torch.from_numpy((base[None, None, :] + rng.normal(
+                0, 3, (b, sizes[-1], p))).astype(np.float32)).to(dev)
+        thr = torch.from_numpy(
+            (base + 0.5).astype(np.float32) if form == "float"
+            else base.astype(np.int32)).to(dev)
+    return (pipe._pack_input(x), pipe.layer_ws, pipe.layer_cs,
+            pipe.layer_n_bits, pipe.head.cam.rows_packed, thr), samples
+
+
+def _check_fused_mlp(args, bias, samples=None, **kw):
+    """One launch of kernel 3, counted, `torch.equal` to its plain
+    version."""
+    before = fused_mlp.fused_mlp_votes.launches
+    got = fused_mlp.fused_mlp_votes(*args, bias_cells=bias,
+                                    thr_samples=samples, **kw)
+    torch.cuda.synchronize()
+    assert fused_mlp.fused_mlp_votes.launches == before + 1
+    assert torch.equal(got, fused_mlp.fused_mlp_votes_plain(
+        *args, bias_cells=bias, thr_samples=samples))
+
+
+@pytest.mark.parametrize("net", EDGE_NETS,
+                         ids=lambda n: "-".join(map(str, n)))
+@pytest.mark.parametrize("b", [1, 15, 16, 17, 4097])
+@pytest.mark.parametrize("form", ["int", "float", "sampled"])
+def test_fused_mlp_batch_edges_equal_plain(dev, net, b, form):
+    """Batches around the m16 tile and the 32-query block tile, with the
+    rows read from global memory or staged in shared memory."""
+    *sizes, bias = net
+    args, samples = _mlp_args(sizes, bias, b, form, dev, seed=b)
+    base, rows = fused_mlp.mlp_smem_bytes(args[0].shape[1], args[1],
+                                          args[4], 32, samples is not None)
+    assert cam_search.rows_in_smem(base, rows) == (sizes[0] == 4096)
+    _check_fused_mlp(args, bias, samples)
+
+
+@pytest.mark.parametrize("form", ["int", "float", "sampled"])
+def test_fused_mlp_eight_layers_equal_plain(dev, form):
+    *sizes, bias = DEEP_NET
+    assert len(sizes) - 2 == fused_mlp.MAX_LAYERS
+    args, samples = _mlp_args(sizes, bias, 333, form, dev)
+    _check_fused_mlp(args, bias, samples)
+
+
+@pytest.mark.parametrize("form", ["int", "float", "sampled"])
+def test_fused_mlp_head_only_equal_plain(dev, form):
+    """No hidden layers: the query is `cam.query_with_bias` of ±1
+    activations, the head stage alone."""
+    folded = _folded((128, 20), 3, 64)
+    head = ensemble.build_head(folded[-1], ensemble.EnsembleConfig())
+    rng = np.random.default_rng(4)
+    h = torch.from_numpy(rng.choice([-1.0, 1.0], (1001, 128)).astype(
+        np.float32)).to(dev)
+    q = cam.query_with_bias(h, 64)
+    thr, samples = _thresholds(form, rng, 1001, 20, 192, dev)
+    args = (q, [], [], [], head.cam.rows_packed.to(dev), thr)
+    _check_fused_mlp(args, 64, samples)
+
+
+@pytest.mark.parametrize("b", [1, 15, 16, 17, 4097])
+def test_fused_mlp_sign_at_zero_batch_edges(dev, b):
+    """C = 0 with an even fan-in (y = 0 common, mapped to +1) at the
+    tiles' edges."""
+    pipe = tpipe.compile_pipeline(_folded((64, 32, 6), 4, 64),
+                                  ensemble.EnsembleConfig(), device=dev)
+    x = torch.from_numpy(np.random.default_rng(b).choice(
+        [-1.0, 1.0], (b, 64)).astype(np.float32)).to(dev)
+    cs = [torch.zeros(32, dtype=torch.int32, device=dev)]
+    args = (pipe._pack_input(x), pipe.layer_ws, cs, pipe.layer_n_bits,
+            pipe.head.cam.rows_packed, pipe.head.thresholds)
+    _check_fused_mlp(args, 64)
+
+
+@pytest.mark.parametrize("form", ["int", "float", "sampled"])
+def test_fused_mlp_rows_from_global_equal_plain(dev, form):
+    """A net whose rows do not fit in shared memory beside the tiles:
+    the stage reads them from global memory."""
+    *sizes, bias = WIDE_NET
+    args, samples = _mlp_args(sizes, bias, 1001, form, dev)
+    base, rows = fused_mlp.mlp_smem_bytes(args[0].shape[1], args[1],
+                                          args[4], 32, samples is not None)
+    assert base <= fused_mlp.SMEM_LIMIT < base + rows
+    assert not cam_search.rows_in_smem(base, rows)
+    _check_fused_mlp(args, bias, samples)
+
+
+@pytest.mark.parametrize("form", ["int", "float", "sampled"])
+def test_fused_mlp_256_thresholds_equal_plain(dev, form):
+    *sizes, bias = EDGE_NETS[0]
+    args, samples = _mlp_args(sizes, bias, 1001, form, dev, p=256)
+    assert args[5].shape[0] == 256
+    _check_fused_mlp(args, bias, samples)
+
+
+@pytest.mark.parametrize("bq", [16, 32, 64])
+def test_fused_mlp_tile_loop_equal_plain(dev, bq):
+    """More tiles than one wave of blocks: each block walks several,
+    fetching the next tile's input while the current one runs."""
+    args, _ = _mlp_args((784, 128, 10), 64, 40000 + bq, "int", dev)
+    _check_fused_mlp(args, 64, bq=bq)
+
+
+@pytest.mark.parametrize("c", [3, 20, 100])
+@pytest.mark.parametrize("kw", [1, 6, 33])
+@pytest.mark.parametrize("form", ["int", "float", "sampled"])
+def test_cam_vote_tile_edges_equal_plain(dev, c, kw, form):
+    rng = np.random.default_rng(c * 100 + kw)
+    b = 1001
+    q, rows = _packed(rng, b, 32 * kw, dev), _packed(rng, c, 32 * kw, dev)
+    thr, samples = _thresholds(form, rng, b, c, 32 * kw, dev)
+    before = cam_search.cam_vote.launches
+    got = cam_search.cam_vote(q, rows, thr, thr_samples=samples)
+    torch.cuda.synchronize()
+    assert cam_search.cam_vote.launches == before + 1
+    assert torch.equal(got, cam_search.cam_vote_plain(q, rows, thr,
+                                                      thr_samples=samples))
+
+
+@pytest.mark.parametrize("c,kw", [(100, 80), (3, 900)])
+@pytest.mark.parametrize("form", ["int", "float", "sampled"])
+def test_cam_vote_wide_rows_equal_plain(dev, c, kw, form):
+    """Class rows of 38 KB, staged in shared memory; and rows of 900
+    words, where a tile holds 16 queries, not 32."""
+    rng = np.random.default_rng(kw)
+    b = 777
+    q, rows = _packed(rng, b, 32 * kw, dev), _packed(rng, c, 32 * kw, dev)
+    thr, samples = _thresholds(form, rng, b, c, 32 * kw, dev)
+    vt = cam_search.vote_table_len(kw, samples is not None)
+    base, nbytes = cam_search.block_smem_bytes(kw, [], cam_search.CAM_BQ, vt,
+                                               [(c, kw)])
+    assert cam_search.rows_in_smem(base, nbytes) == (kw == 80)
+    assert (base <= cam_search.SMEM_LIMIT) == (kw == 80)
+    before = cam_search.cam_vote.launches
+    got = cam_search.cam_vote(q, rows, thr, thr_samples=samples)
+    torch.cuda.synchronize()
+    assert cam_search.cam_vote.launches == before + 1
+    assert torch.equal(got, cam_search.cam_vote_plain(q, rows, thr,
+                                                      thr_samples=samples))
+
+
+@pytest.mark.parametrize("b", [1, 17, 40001])
+def test_cam_vote_batch_edges_equal_plain(dev, b):
+    """A lone query, one past an m16 tile, and more tiles than a wave."""
+    rng = np.random.default_rng(b)
+    q, rows = _packed(rng, b, 192, dev), _packed(rng, 20, 192, dev)
+    thr, _ = _thresholds("int", rng, b, 20, 192, dev)
+    before = cam_search.cam_vote.launches
+    got = cam_search.cam_vote(q, rows, thr)
+    torch.cuda.synchronize()
+    assert cam_search.cam_vote.launches == before + 1
+    assert torch.equal(got, cam_search.cam_vote_plain(q, rows, thr))
+
+
 @pytest.mark.parametrize("net", NETS, ids=lambda n: "-".join(map(str, n)))
 def test_pipeline_on_card_equals_cpu(dev, net):
     *sizes, bias = net

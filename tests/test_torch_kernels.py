@@ -14,6 +14,7 @@ import torch
 
 from _torch_port import (BANK_BIAS, BANK_NETS, packed, pm1,
                          random_folded)
+from repro_torch import convert
 from repro.core import ensemble as jens
 from repro.kernels import fused_mlp as jfm
 from repro.kernels import ops as jops
@@ -192,3 +193,109 @@ def test_sign_at_zero_maps_to_plus_one():
         tbin.pack_pm1(torch.from_numpy(x)), tws, tcs, n_bits,
         th.cam.rows_packed, th.thresholds, bias_cells=64)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _ones_queries(n_bits):
+    """Queries 0..n_bits, query h holding h ones: against an all-zero row
+    query h sits at Hamming distance h (numpy words and the port's)."""
+    from repro.core import binarize as jbin
+
+    h = np.arange(n_bits + 1)[:, None]
+    words = jbin.np_pack_bits((np.arange(n_bits)[None, :] < h).astype(np.uint8))
+    return words, convert.rows_from_jax(words)
+
+
+# (n_bits, C): n_bits + C even, odd and zero, negative and odd, negative
+# and even, and above 2*n_bits (every bit set)
+SIGN_CASES = [(64, 0), (64, 3), (63, 0), (63, -62), (40, -40), (40, -41),
+              (40, -44), (33, -35), (50, 60), (96, -1)]
+
+
+@pytest.mark.parametrize("n_bits,c", SIGN_CASES)
+def test_sign_limit_equals_reference_compare(n_bits, c):
+    """The FC stage's epilogue, hd <= (n_bits + C) >> 1 (`sign_limit`),
+    against the reference kernel's y = n_bits - 2*hd + C >= 0 at every
+    integer hd in [0, n_bits].  A one-neuron layer of zero weights sees
+    query h at distance h; a zero head row with 31 bias cells then votes
+    1 under the threshold 31 exactly when the neuron's bit is 0."""
+    xw, x = _ones_queries(n_bits)
+    kw = xw.shape[1]
+    thr = np.array([31], np.int32)
+    votes = np.asarray(jfm.fused_mlp_votes(
+        jnp.asarray(xw), (jnp.zeros((1, kw), jnp.uint32),),
+        (jnp.asarray([c], jnp.int32),), (n_bits,),
+        jnp.zeros((1, 1), jnp.uint32), jnp.asarray(thr), bias_cells=31,
+        bq=16, interpret=True))
+    hd = torch.arange(n_bits + 1, dtype=torch.int32)
+    lim = fused_mlp.sign_limit(n_bits, torch.tensor([c], dtype=torch.int32))
+    assert lim.dtype == torch.int32
+    np.testing.assert_array_equal((hd <= lim).numpy(), votes[:, 0] == 0)
+    got = fused_mlp.fused_mlp_votes(
+        x, (torch.zeros((1, kw), dtype=torch.int32),),
+        (torch.tensor([c], dtype=torch.int32),), (n_bits,),
+        torch.zeros((1, 1), dtype=torch.int32), torch.from_numpy(thr),
+        bias_cells=31)
+    np.testing.assert_array_equal(got.numpy(), votes)
+
+
+# shared schedules: the paper's 33-pass sweep (int, and float between
+# the integers), and ones with negative, repeated, non-integer and
+# above-range thresholds
+VOTE_SCHEDULES = {
+    "paper-int": (np.arange(0, 65, 2)).astype(np.int32),
+    "int-edges": np.array([-5, 0, 0, 7, 31, 64, 65, 1000], np.int32),
+    "paper-float": (np.arange(0, 65, 2) + 0.5).astype(np.float32),
+    "float-edges": np.array([-0.5, -3.0, 0.0, 0.25, 6.5, 6.999, 7.0, 63.75,
+                             64.0, 64.5, 1e9], np.float32),
+}
+
+
+@pytest.mark.parametrize("name", sorted(VOTE_SCHEDULES))
+def test_vote_table_equals_reference_vote(name):
+    """The block's vote table (`vote_table`: entry h is the vote of
+    distance h) against the reference's cam_vote at every integer
+    distance in [0, n_bits]: query h holds h ones against a zero row."""
+    n_bits = 64
+    thr = VOTE_SCHEDULES[name]
+    qw, _ = _ones_queries(n_bits)
+    rows = np.zeros((1, qw.shape[1]), np.uint32)
+    want = np.asarray(jops.cam_vote(
+        jnp.asarray(qw), jnp.asarray(rows), jnp.asarray(thr), bq=16, bc=16,
+        chunk=4, interpret=True))[:, 0]
+    n = cam_search.vote_table_len(qw.shape[1], sampled=False)
+    assert n == n_bits + 1
+    got = cam_search.vote_table(torch.from_numpy(thr), n)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_vote_table_len_and_block_layout():
+    """The block program's sizes (host twins of csrc/mlp_block.cuh): the
+    vote table spans a head's distances up to its cap and is absent for
+    sampled thresholds.  At bq = 32 the HG MLP's rows (67 KB) are staged
+    in shared memory beside the tiles; the MNIST MLP's (19 KB, under
+    ROWS_SMEM_MIN) and those of a 512-neuron layer on the HG input (too
+    wide to fit) are read from global memory."""
+    assert cam_search.vote_table_len(6, sampled=False) == 193
+    assert cam_search.vote_table_len(6, sampled=True) == 0
+    assert cam_search.vote_table_len(100, sampled=False) == \
+        cam_search.VOTE_TABLE_MAX
+
+    def smem(sizes):
+        ws = [torch.zeros((n, -(-k // 32)), dtype=torch.int32)
+              for k, n in zip(sizes[:-2], sizes[1:-1])]
+        head = torch.zeros((sizes[-1], -(-(sizes[-2] + 64) // 32)),
+                           dtype=torch.int32)
+        return fused_mlp.mlp_smem_bytes(-(-sizes[0] // 32), ws, head, 32,
+                                        sampled=False)
+
+    base, rows = smem((4096, 128, 20))
+    assert (base, rows) == (4 * (256 + 196 + 64 * (132 + 12)),
+                            4 * (128 * 132 + 24 * 12))
+    assert cam_search.rows_in_smem(base, rows)
+    base, rows = smem((784, 128, 10))
+    assert rows < cam_search.ROWS_SMEM_MIN
+    assert not cam_search.rows_in_smem(base, rows)
+    base, rows = smem((4096, 512, 20))
+    assert base <= fused_mlp.SMEM_LIMIT < base + rows
+    assert not cam_search.rows_in_smem(base, rows)
