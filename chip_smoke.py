@@ -48,8 +48,26 @@ exit 0):
    (folded_forward_exact + votes_fused for the MLPs, `conv_votes_ref`
    for the CNNs) at B = 100; `ops.cam_vote` equals votes_fused; served
    votes equal direct `run`.
-5. A `{"kernels": [...]}` line (launches on the kernel's path, error,
-   times, bound), then, as the last line, `{"ok": true, "device": ...}`.
+5. Silicon mode, with every launch counter set to 0 just before it: the
+   four models compiled with noise=SILICON (no device argument), run at
+   B in {1, 100, 4096} for noise="batch" votes and argmax (kernels 3 and
+   4 with the sampler's [B, C, P] thresholds) and per-request votes and
+   MC-8 sums (head distances once: kernel 1, after the stage entry for
+   the CNNs), noisy cumulative at B = 100, an HG MLP with a calibrated
+   (float) head, NOISELESS pipelines on every noisy spec, and one server
+   with a silicon MLP and a silicon CNN answering 400 keyed requests
+   each.  Kernels 1, 3, 4 and the stage entry must have launched.
+   Checks: batch votes equal the CPU pipeline's distances against the
+   samples replayed from the generator state (the CNNs at B = 4096
+   against the card's own distances), per-request votes equal the card's
+   own compare of its keyed samples (card-vs-CPU agreement printed),
+   NOISELESS equals the noiseless votes, calibrated card equals CPU,
+   served equals direct.  Then the sampled-form kernels and the sampler
+   timed at B = 4096 and `run()` per silicon spec, in a `{"silicon": ...}`
+   line.
+6. A `{"kernels": [...]}` line (launches on the kernel's path and on the
+   silicon path, error, times, sampled-form times, bound), then, as the
+   last line, `{"ok": true, "device": ...}`.
 
 Without CUDA, or without the rest of the repository beside it, the script
 exits non-zero before printing any result.  It imports nothing of JAX.
@@ -426,6 +444,324 @@ def check_conv_kernels(pipe, xp, gen, card, mid: str, report: dict,
             library_ms=None, max_abs_err=err)
 
 
+def sampled_form_rows(pipe, x, gen, card, mid: str, report: dict) -> None:
+    """Kernel 3 (MLP) or 4 (CNN) in its sampled-threshold form, fed by
+    the port's sampler, at the largest batch: device, call and plain
+    times and the bound, into `report[...]["sampled"][mid]`.  The
+    sampler itself is timed beside it (`sampler_ms`)."""
+    from repro_torch.kernels import fused_conv, fused_mlp
+
+    head, phys = pipe.head, pipe.physics
+    xp = pipe._pack_input(torch.as_tensor(x).to(pipe.device))
+    b, n_cls, p = xp.shape[0], head.n_classes, head.thresholds.shape[0]
+    samples = phys.sample(gen, (b,), n_cls).movedim(0, -1).contiguous()
+    if pipe.conv is not None:
+        conv = pipe.conv
+        args = (conv.maps(xp), conv.ws, conv.cs, conv.metas, pipe.layer_ws,
+                pipe.layer_cs, pipe.layer_n_bits, head.cam.rows_packed,
+                head.thresholds)
+        kw = dict(bias_cells=head.bias_cells, head_direct=conv.head_direct,
+                  thr_samples=samples)
+        name, fn, plain = ("fused_conv_votes", fused_conv.fused_conv_votes,
+                           fused_conv.fused_conv_votes_plain)
+        work = list(conv_work(pipe, b, p, False))
+    else:
+        args = (xp, pipe.layer_ws, pipe.layer_cs, pipe.layer_n_bits,
+                head.cam.rows_packed, head.thresholds)
+        kw = dict(bias_cells=head.bias_cells, thr_samples=samples)
+        name, fn, plain = ("fused_mlp_votes", fused_mlp.fused_mlp_votes,
+                           fused_mlp.fused_mlp_votes_plain)
+        w1, head_rows = pipe.layer_ws[0], head.cam.rows_packed
+        kw0, n1 = xp.shape[1], pipe.layer_n_bits[0]
+        pairs = b * (w1.shape[0] * kw0 + n_cls * head_rows.shape[1])
+        beside = 2 * b * w1.shape[0] + 2 * b * n_cls * p
+        work = [pairs, 2 * pairs + beside,
+                4 * (b * kw0 + w1.numel() + w1.shape[0] + head_rows.numel()
+                     + p + b * n_cls),
+                b * (w1.shape[0] * n1 + n_cls * head.cam.n_bits), beside]
+    work[2] += 4 * samples.numel()  # the [B, C, P] operand, read once
+    got = fn(*args, **kw)
+    want = plain(*args, **kw)
+    require(torch.equal(got, want), f"{mid}: {name}[sampled, sampler] != "
+            "plain")
+    report[name].setdefault("sampled", {})[mid] = row = dict(
+        shape=f"x[{b}] thr_samples[{b},{n_cls},{p}]",
+        ms=device_ms(lambda: fn(*args, **kw), iters=20),
+        call_ms=time_ms(lambda: fn(*args, **kw), 20),
+        plain_ms=time_ms(lambda: plain(*args, **kw), 3),
+        **bound_fields(card, *work),
+        max_abs_err=int((got - want).abs().max()))
+    print(f"  {mid:9s} {name}[sampled] {row['shape']}: kernel {row['ms']} "
+          f"ms (call {row['call_ms']:.4f} ms), plain {row['plain_ms']:.3f} "
+          f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_route']})")
+
+
+def sampler_ms(pipe, b: int) -> dict:
+    """Device time of the batch sampler (`SearchPhysics.sample` [P, B, C]
+    and the move to the kernel's [B, C, P] layout) at batch b: CUDA-graph
+    replay on the card's default generator, which a graph captures with
+    its state; a custom generator is not captured, so the pipeline's own
+    calls are timed by `run()` only.  Bound: the [P, B, C] float32
+    samples written once and moved once (read and written)."""
+    phys, n_cls = pipe.physics, pipe.n_classes
+    on_card = pipe.device.type == "cuda"
+    gen = (torch.cuda.default_generators[pipe.device.index or 0] if on_card
+           else torch.Generator().manual_seed(0))
+
+    def draw():
+        return phys.sample(gen, (b,), n_cls).movedim(0, -1).contiguous()
+
+    n = phys.n_passes * b * n_cls * 4
+    return dict(shape=f"[{phys.n_passes},{b},{n_cls}]",
+                ms=device_ms(draw, iters=20), call_ms=time_ms(draw, 20),
+                bound_ms=3 * n / MEM_BYTES_PER_S * 1e3, bound_by="bytes",
+                timing="CUDA-graph replay, default CUDA generator")
+
+
+def silicon_phase(dev, b_main: int, batches, card, smi: str, models: dict,
+                  cnns: dict, report: dict, counted) -> dict:
+    """Phase 5: silicon mode on the main path.
+
+    The two MLPs and two CNNs compiled with noise=SILICON (no device
+    argument on the card), run at every batch size for noise="batch"
+    votes and argmax (kernels 3 / 4 with sampled thresholds) and
+    per-request votes and MC-8 sums (head distances once: kernel 1,
+    after the stage entry for a CNN), noisy cumulative at B = 100, an HG
+    MLP with a calibrated (float) head, NOISELESS pipelines on every
+    noisy spec, and one server with a silicon MLP and a silicon CNN
+    answering keyed requests.  Every launch count is set to 0 just
+    before and read just after; then the checks, then the times.
+    Returns {"launches": ..., "e2e": ..., "sampler": ...}."""
+    from repro_torch.configs.paper_cnn import build_cnn_pipeline
+    from repro_torch.core.device_model import NOISELESS, SILICON
+    from repro_torch.core.ensemble import EnsembleConfig
+    from repro_torch.pipeline import compile_pipeline, next_bucket
+    from repro_torch.serve.picbnn import BatchingPolicy, PicBnnServer
+    from repro_torch.spec import InferenceSpec
+
+    on_card = dev.type == "cuda"
+    here = {} if on_card else {"device": dev}
+    t0 = time.perf_counter()
+    every = {**models, **cnns}
+
+    def make(m, noise, **kw):
+        if hasattr(m["cfg"], "side"):  # a CNN config
+            return build_cnn_pipeline(m["cfg"], m["folded"], noise=noise,
+                                      **kw)
+        return compile_pipeline(m["folded"], EnsembleConfig(
+            bias_cells=m["cfg"].bias_cells), noise=noise, **kw)
+
+    for mid, m in every.items():
+        m["si_gpu"] = make(m, SILICON, **here)
+        m["si_cpu"] = make(m, SILICON, device="cpu")
+        m["nl_gpu"] = make(m, NOISELESS, **here)
+        require(m["si_gpu"].device == dev and not
+                m["si_gpu"].physics.is_noiseless,
+                f"{mid}: compile_pipeline(noise=SILICON) not a silicon "
+                "pipeline on the card")
+    cal = EnsembleConfig(calibrated=True)
+    hg = models["hg"]
+    cal_gpu = compile_pipeline(hg["folded"], cal, **here)
+    cal_cpu = compile_pipeline(hg["folded"], cal, device="cpu")
+    require(cal_gpu.head.thresholds.dtype == torch.float32,
+            "calibrated head thresholds are not float32")
+    print(f"silicon: compiled {len(every)} x (SILICON card, SILICON CPU, "
+          f"NOISELESS card) + calibrated HG in "
+          f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED + 11)
+    keys = rng.integers(0, 2 ** 32, (b_main, 2), dtype=np.uint64).astype(
+        np.uint32)
+    batch = InferenceSpec(noise="batch")
+    specs = {"batch": batch,
+             "batch_argmax": InferenceSpec(noise="batch",
+                                           reduction="argmax"),
+             "per_request": InferenceSpec(noise="per_request"),
+             "per_request_mc8_sum": InferenceSpec(
+                 noise="per_request", mc_samples=8, reduction="sum")}
+    cum = InferenceSpec(noise="batch", cumulative=True)
+    gen = torch.Generator(dev).manual_seed(SEED + 12)
+
+    # --------------------------------- the silicon path, counts from 0
+    for fn in counted:
+        fn.launches = 0
+    out, states = {}, {}
+    for mid, m in every.items():
+        for bsz in batches:
+            for sname, spec in specs.items():
+                if spec.needs_key:
+                    states[(mid, bsz, sname)] = gen.get_state()
+                out[(mid, bsz, sname)] = m["si_gpu"].run(
+                    m["x"][:bsz], spec, key=gen if spec.needs_key else None,
+                    keys=keys[:bsz] if spec.needs_keys else None)
+        states[(mid, 100, "cumulative")] = gen.get_state()
+        out[(mid, 100, "cumulative")] = m["si_gpu"].run(m["x"][:100], cum,
+                                                        key=gen)
+        for sname, spec in {**specs, "cumulative": cum}.items():
+            out[(mid, 100, "noiseless/" + sname)] = m["nl_gpu"].run(
+                m["x"][:100], spec, key=gen if spec.needs_key else None,
+                keys=keys[:100] if spec.needs_keys else None)
+    for bsz in batches:
+        out[("hg_cal", bsz, "votes")] = cal_gpu.run(hg["x"][:bsz],
+                                                    InferenceSpec())
+    server = PicBnnServer(BatchingPolicy(max_batch=256, max_wait_us=500),
+                          devices=None if on_card else [dev])
+    served_ids = {"si_mlp": "hg", "si_cnn": "mnist_cnn"}
+    for sid, mid in served_ids.items():
+        server.register(sid, every[mid]["si_gpu"])
+    server.warmup()
+    served = {}
+    with server:
+        singles = {sid: [server.submit(sid, every[mid]["x"][i], key=keys[i])
+                         for i in range(100)]
+                   for sid, mid in served_ids.items()}
+        bursts = {sid: server.submit_many(sid, every[mid]["x"][100:400],
+                                          keys=keys[100:400])
+                  for sid, mid in served_ids.items()}
+        for sid in served_ids:
+            served[sid] = np.concatenate(
+                [np.stack([h.result(timeout=120).votes
+                           for h in singles[sid]]),
+                 bursts[sid].votes_all(timeout=120)])
+    if on_card:
+        torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counted}
+    print(f"silicon path: launches {launches}")
+    for fn in counted:
+        if fn.__name__ != "cam_vote":
+            require(launches[fn.__name__] > 0 or not on_card,
+                    f"{fn.__name__} was not launched on the silicon path")
+    n_req = sum(len(every[mid]["x"][:400]) for mid in served_ids.values())
+    require(server.stats().n_requests == n_req,
+            "silicon server did not answer every request")
+
+    # ------------------------------------------------------------ checks
+    agree = {}
+    for mid, m in every.items():
+        gpu, cpu = m["si_gpu"], m["si_cpu"]
+        for bsz in batches:
+            bp = next_bucket(bsz, gpu.min_bucket)
+            xg, _ = gpu._bucketed(gpu._pack_input(
+                torch.from_numpy(m["x"][:bsz]).to(dev)))
+            hd_dev = gpu._head_distances(xg).float()
+            # CPU distances, except the CNNs at the largest batch (their
+            # plain conv on the CPU would dominate the run): there the
+            # card's own HD-once route (stage + kernel 1)
+            cnn_big = mid in cnns and bsz > 100
+            if not cnn_big:
+                xc, _ = cpu._bucketed(cpu._pack_input(
+                    torch.from_numpy(m["x"][:bsz])))
+                hd_cpu = cpu._head_distances(xc).float()
+                require(torch.equal(hd_dev.cpu(), hd_cpu),
+                        f"{mid} B={bsz}: card head distances != CPU")
+            for sname in ("batch", "batch_argmax"):
+                replay = torch.Generator(dev)
+                replay.set_state(states[(mid, bsz, sname)])
+                s = gpu.physics.sample(replay, (bp,), gpu.n_classes)
+                if cnn_big:
+                    votes = (hd_dev <= s).sum(0, dtype=torch.int32)[:bsz]
+                else:
+                    votes = (hd_cpu <= s.cpu()).sum(0, dtype=torch.int32)[
+                        :bsz]
+                if sname == "batch_argmax":
+                    votes = torch.argmax(votes, dim=-1).to(torch.int32)
+                got = out[(mid, bsz, sname)]
+                require(got.device == dev and torch.equal(
+                    got.cpu(), votes.cpu()),
+                    f"{mid} B={bsz} {sname}: card votes != the CPU compare "
+                    "of the replayed samples")
+            kw = gpu._each_keys(keys[:bsz], bsz, bp)
+            for sname, mc in (("per_request", 1),
+                              ("per_request_mc8_sum", 8)):
+                t = gpu.physics.sample_keyed(kw, gpu.n_classes, mc)
+                own = (hd_dev <= t).sum(0, dtype=torch.int32).sum(
+                    0, dtype=torch.int32)[:bsz]
+                require(torch.equal(out[(mid, bsz, sname)], own),
+                        f"{mid} B={bsz} {sname}: card votes != its own "
+                        "compare of its keyed samples")
+            if not cnn_big:
+                want = cpu.run(m["x"][:bsz], specs["per_request"],
+                               keys=keys[:bsz])
+                agree[f"{mid}/B={bsz}"] = float(
+                    (out[(mid, bsz, "per_request")].cpu() == want)
+                    .to(torch.float32).mean())
+        replay = torch.Generator(dev)
+        replay.set_state(states[(mid, 100, "cumulative")])
+        xc, _ = cpu._bucketed(cpu._pack_input(torch.from_numpy(
+            m["x"][:100])))
+        s = gpu.physics.sample(replay, (next_bucket(100, gpu.min_bucket),),
+                               gpu.n_classes).cpu()
+        stair = torch.cumsum(cpu._head_distances(xc).float() <= s, 0,
+                             dtype=torch.int32)[:, :100]
+        require(torch.equal(out[(mid, 100, "cumulative")].cpu(), stair),
+                f"{mid}: noisy cumulative != the replayed staircase")
+        base = m["gpu"].run(m["x"][:100], InferenceSpec())
+        for sname, spec in {**specs, "cumulative": cum}.items():
+            got = out[(mid, 100, "noiseless/" + sname)]
+            want = (base.argmax(-1).to(torch.int32) if "argmax" in sname
+                    else 8 * base if "mc8" in sname
+                    else m["gpu"].run(m["x"][:100],
+                                      InferenceSpec(cumulative=True))
+                    if sname == "cumulative" else base)
+            require(torch.equal(got, want),
+                    f"{mid}: NOISELESS {sname} != the noiseless votes")
+    for bsz in batches:
+        require(torch.equal(out[("hg_cal", bsz, "votes")].cpu(),
+                            cal_cpu.run(hg["x"][:bsz], InferenceSpec())),
+                f"calibrated HG B={bsz}: card != CPU")
+    for sid, mid in served_ids.items():
+        direct = every[mid]["si_gpu"].run(
+            every[mid]["x"][:400], specs["per_request"], keys=keys[:400])
+        require(np.array_equal(served[sid], direct.cpu().numpy()),
+                f"{sid}: served silicon votes != direct run")
+    print(f"  silicon: batch votes/argmax == CPU compare of the replayed "
+          f"samples, per-request == own compare, NOISELESS == noiseless, "
+          f"calibrated == CPU, served == direct ({n_req} keyed requests)")
+    print(f"  per-request card vs CPU agreement: {agree}")
+
+    # ------------------------------------------------------------- times
+    sampled = {}
+    for mid, m in every.items():
+        sampled_form_rows(m["si_gpu"], m["x"], gen, card, mid, report)
+    e2e = {}
+    xs = {mid: torch.from_numpy(m["x"]).to(dev) for mid, m in every.items()}
+    for mid, m in every.items():
+        for sname, spec in specs.items():
+            ms = time_ms(lambda: m["si_gpu"].run(
+                xs[mid], spec, key=gen if spec.needs_key else None,
+                keys=keys if spec.needs_keys else None), 5)
+            e2e[f"{mid}/B={b_main}/{sname}"] = dict(
+                ms=ms, inf_per_s=b_main / ms * 1e3)
+            print(f"  run {mid:9s} B={b_main} {sname:20s}: {ms:.4f} ms")
+        sampled[mid] = sampler_ms(m["si_gpu"], b_main)
+        print(f"  sampler {mid:9s} {sampled[mid]['shape']}: device "
+              f"{sampled[mid]['ms']} ms (call {sampled[mid]['call_ms']:.4f} "
+              f"ms), bound {sampled[mid]['bound_ms']:.4f} ms")
+    # the keyed (per-request) sampler alone, and where a per-request
+    # run() goes: device kernels against the rest of the call
+    keyed = {}
+    for mid in ("mnist", "hg"):
+        pipe = every[mid]["si_gpu"]
+        kw = pipe._each_keys(keys, b_main, b_main)
+        for mc in (1, 8):
+            draw = (lambda: pipe.physics.sample_keyed(kw, pipe.n_classes,
+                                                      mc))
+            keyed[f"{mid}/B={b_main}/mc={mc}"] = row = dict(
+                ms=device_ms(draw, iters=5, replays=3),
+                call_ms=time_ms(draw, 5))
+            print(f"  keyed sampler {mid:5s} mc={mc}: device {row['ms']} ms "
+                  f"(call {row['call_ms']:.4f} ms)")
+    split = profile_split(lambda: every["hg"]["si_gpu"].run(
+        xs["hg"], specs["per_request"], keys=keys), 5)
+    print(f"  profile hg B={b_main} run() per_request: "
+          f"{split['call_ms']:.4f} ms a call, device kernels "
+          f"{split['device_kernel_ms']:.4f} ms in "
+          f"{len(split['kernels'])} kernel names")
+    split["kernels"] = dict(list(split["kernels"].items())[:8])
+    return dict(launches=launches, e2e=e2e, sampler=sampled,
+                keyed_sampler=keyed, agreement=agree,
+                profile={f"hg/B={b_main}/per_request": split}, card=smi)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check needs the card",
@@ -461,6 +797,7 @@ def main() -> int:
             require(n_imma + n_bmma > 0,
                     f"{name}: no tensor-core MMA (IMMA/BMMA) in its SASS")
     kernels = run(torch.device("cuda", 0), B_MAIN, MAIN_BATCHES, card, smi)
+    print(f"smoke: {time.perf_counter() - t0:.1f} s after the build began")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -773,6 +1110,11 @@ def run(dev: torch.device, b_main: int, batches, card: Card,
         print(f"  {mid}: card == CPU at B={batches}, == oracle at "
               f"B=100, served == direct for 400 requests")
 
+    # ------------------------------------------- silicon mode (phase 5)
+    silicon = silicon_phase(dev, b_main, batches, card, smi, models, cnns,
+                            report, counted)
+    print(json.dumps({"silicon": silicon}))
+
     # ------------------------------------------------------------ summary
     line = []
     for name, r in report.items():
@@ -785,6 +1127,10 @@ def run(dev: torch.device, b_main: int, batches, card: Card,
                   else "pipeline run + server"),
             launches=(op_launches if op_path else launches)[name],
             main_path_launches=launches[name],
+            silicon_launches=silicon["launches"][name],
+            sampled_ms=r.get("sampled", {}).get(
+                "hg_cnn" if "conv" in name else "hg", {}).get("ms"),
+            sampled=r.get("sampled"),
             equal=True, max_abs_err=max(
                 v["max_abs_err"] for v in r["per_model"].values()),
             ms=main["ms"], kernel_ms=main["ms"], call_ms=main["call_ms"],

@@ -9,8 +9,8 @@
       -> flatten 7200 -> FC 128 -> CAM head (20 rows, 33-pass vote)
 
 Conv channel counts are multiples of 32, so the conv->FC flatten is
-word-aligned.  `build_cnn_pipeline` compiles a folded CNN in one call;
-`deploy_cnn` waits for the deployment slice.
+word-aligned.  `deploy_cnn` builds the persistable `deploy.Deployment`;
+`build_cnn_pipeline` compiles a folded CNN in one call.
 """
 
 from __future__ import annotations
@@ -44,12 +44,13 @@ CNN_ENSEMBLE = EnsembleConfig(
 
 
 def deploy_cnn(cfg: CNNConfig, model, *, noise=None, **kw):
-    """The reference's `Deployment` artifact for a CNN: waits for the
-    deployment slice of the port."""
-    raise NotImplementedError(
-        "deploy_cnn (a persistable Deployment) waits for the deployment "
-        "slice of the port; use build_cnn_pipeline"
-    )
+    """The `deploy.Deployment` of an end-to-end CNN: `deploy.deploy` with
+    the config's image side, input encoding and bias cells.  `model` is
+    `convnet.fold_cnn` / `random_folded_cnn` output or trained
+    parameters; `kw` takes `device=` and the compile options."""
+    from repro_torch.deploy import deploy
+
+    return deploy(model, config=cfg, noise=noise, **kw)
 
 
 def build_cnn_pipeline(cfg: CNNConfig, folded, **kw):
@@ -58,7 +59,7 @@ def build_cnn_pipeline(cfg: CNNConfig, folded, **kw):
     What the reference's `deploy_cnn(cfg, folded).pipeline()` compiles:
     the config's image side, input encoding and bias cells, the default
     threshold sweep.  `kw` goes to `compile_pipeline` (device,
-    min_bucket, max_bucket).
+    min_bucket, max_bucket, noise, params).
     """
     return compile_pipeline(
         list(folded), EnsembleConfig(bias_cells=cfg.bias_cells),

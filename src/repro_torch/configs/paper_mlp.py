@@ -3,8 +3,8 @@
   MNIST MLP        : 784 -> 128 -> 10
   Hand Gesture MLP : 4096 -> 128 -> 20
 
-plus the Algorithm 1 ensemble settings (33 thresholds, {0, 2, ..., 64}).
-`deploy_mlp` waits for the deployment slice.
+plus the Algorithm 1 ensemble settings (33 thresholds, {0, 2, ..., 64})
+and `deploy_mlp`, the persistable `deploy.Deployment` of a paper MLP.
 """
 
 from repro_torch.core.bnn import MLPConfig
@@ -16,6 +16,15 @@ HG_MLP = MLPConfig(layer_sizes=(4096, 128, 20), bias_cells=64)
 PAPER_ENSEMBLE = EnsembleConfig(
     thresholds=PAPER_THRESHOLDS, bias_cells=64, mode="fused"
 )
+
+
+def deploy_mlp(cfg: MLPConfig, model, *, noise=None, **kw):
+    """`deploy.deploy` with the config's bias cells: `model` is
+    `bnn.fold` output or trained parameters (folded here); `kw` takes
+    `device=` and the compile options."""
+    from repro_torch.deploy import deploy
+
+    return deploy(model, config=cfg, noise=noise, **kw)
 
 # Baseline software accuracies reported by the paper (Sec. V-A)
 PAPER_MNIST_TOP1 = 0.952

@@ -1,14 +1,16 @@
-"""Weights carried across from the JAX package.
+"""Weights and settings carried across from the JAX package.
 
 The reference's deployment data is numpy already (`FoldedLayer` holds
 numpy arrays) or converts to numpy losslessly (`np.asarray` of a jax
-array), so the conversions here duck-type their inputs and import nothing
-of the JAX package.  Packed words become the port's int32 view of the
-reference's uint32 bit patterns.
+array), and its noise settings are plain dataclasses of floats, so the
+conversions here duck-type their inputs and import nothing of the JAX
+package.  Packed words become the port's int32 view of the reference's
+uint32 bit patterns.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Sequence
 
 import numpy as np
@@ -17,6 +19,7 @@ import torch
 from repro_torch.core.binarize import InputEncoding, words_to_torch
 from repro_torch.core.bnn import FoldedLayer, Params
 from repro_torch.core.convnet import FoldedConvLayer, is_conv_layer
+from repro_torch.core.device_model import AnalogParams, NoiseModel
 
 
 def folded_from_jax(layers: Sequence[Any]) -> list:
@@ -59,3 +62,17 @@ def params_from_jax(tree: Params) -> Params:
 def rows_from_jax(words, device=None) -> torch.Tensor:
     """uint32 packed words (jax or numpy) -> the port's int32 tensor."""
     return words_to_torch(np.asarray(words), device)
+
+
+def noise_from_jax(noise: Any) -> NoiseModel:
+    """The reference's `device_model.NoiseModel` -> the port's, field by
+    field."""
+    return NoiseModel(**{f.name: float(getattr(noise, f.name))
+                         for f in dataclasses.fields(NoiseModel)})
+
+
+def analog_params_from_jax(params: Any) -> AnalogParams:
+    """The reference's `device_model.AnalogParams` -> the port's, field by
+    field."""
+    return AnalogParams(**{f.name: float(getattr(params, f.name))
+                           for f in dataclasses.fields(AnalogParams)})

@@ -1,5 +1,5 @@
 """Content-addressable memory (CAM) arrays with Hamming-distance search
-(port of `repro/core/cam.py`, noiseless half).
+(port of `repro/core/cam.py`).
 
 A :class:`CAMArray` stores binary rows as packed int32 words.  A search
 asserts a binary query on every row at once; its reference semantics is
@@ -9,19 +9,28 @@ constants are realized as extra always-match / always-mismatch cells
 appended to each row (`write_weights_with_bias`), and the query drives
 logic '1' on those bias searchlines (`query_with_bias`).
 
-The knob-driven noisy searches (`search`, `search_knobs`) wait for the
-noise slice of the port.
+`search` compares the distances against a threshold, optionally under
+PVT noise (`physics.sample_search_thresholds`, drawn from a
+`torch.Generator`); `search_knobs` derives the threshold from the analog
+knob voltages (`physics.sample_effective_threshold` under noise).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
-from repro_torch.core import binarize
+from repro_torch.core import binarize, physics
+from repro_torch.core.device_model import (
+    AnalogParams,
+    NoiseModel,
+    NOISELESS,
+    default_params,
+    hd_threshold,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,6 +100,42 @@ class CAMArray:
         return binarize.hamming_packed(
             query_packed[..., None, :], self.rows_packed
         )
+
+    def search(self, query_packed: torch.Tensor, threshold, *,
+               noise: NoiseModel = NOISELESS,
+               params: Optional[AnalogParams] = None,
+               key: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Approximate search: per-row binary match under HD tolerance.
+
+        threshold — HD tolerance T, scalar or broadcastable to [..., N].
+        noise/key — optional PVT noise on the effective per-row threshold
+                    (`physics.sample_search_thresholds`: every sigma, with
+                    nearest-Table-I-anchor knob provenance); `key` is a
+                    `torch.Generator` on the query's device.
+
+        Returns uint8 [..., N]: 1 where HD(row, query) <= T_eff.
+        """
+        hd = self.search_hd(query_packed)
+        t_eff = physics.sample_search_thresholds(
+            key, threshold, noise, tuple(hd.shape), params=params,
+            device=hd.device)
+        return (hd.to(torch.float32) <= t_eff).to(torch.uint8)
+
+    def search_knobs(self, query_packed: torch.Tensor, v_ref, v_eval, v_st,
+                     *, params: Optional[AnalogParams] = None,
+                     noise: NoiseModel = NOISELESS,
+                     key: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Search with the threshold derived from the knob voltages; under
+        noise the voltages themselves are perturbed
+        (`physics.sample_effective_threshold`, one draw per row)."""
+        params = params or default_params()
+        if key is not None and noise.is_active:
+            t = physics.sample_effective_threshold(
+                key, params, noise, v_ref, v_eval, v_st,
+                shape=(self.n_rows,))
+        else:
+            t = torch.as_tensor(hd_threshold(params, v_ref, v_eval, v_st))
+        return self.search(query_packed, t)
 
 
 def write_weights_with_bias(weights_pm1, bias_counts,

@@ -1,4 +1,4 @@
-"""Algorithm 1, noiseless half (port of `repro/core/ensemble.py`).
+"""Algorithm 1 (port of `repro/core/ensemble.py`).
 
 The output layer of a classification BNN runs once per Hamming-distance
 tolerance T_t of a sweep; class j collects
@@ -6,52 +6,55 @@ tolerance T_t of a sweep; class j collects
 votes.  In the noiseless limit the votes are monotone decreasing in HD_j,
 so argmax(votes) == argmin(HD) == argmax of the full-precision logit.
 
-Execution modes:
-  fused  — HD computed once per (query, row), compared against every T in
-           one pass (plain PyTorch; the oracle of the kernels).
-  kernel — the same vote through `kernels.fused_mlp.fused_mlp_votes`
-           in its head-only form (kernel 3 on the card: query in shared
-           memory, HD once, then the P-threshold compare), as the
-           reference routes it.
+Under analog noise each vote is a Bernoulli trial whose probability is
+sigmoid-like in (T_t - HD_j); summing over passes concentrates the
+estimate (the paper's law-of-large-numbers argument).
 
-The silicon-noise modes (`votes_faithful`, `votes_fused_noisy`,
-`accuracy_sweep`, calibrated thresholds) wait for the noise slice.
+Execution modes:
+  faithful — one search per threshold, per-pass PVT noise (the silicon
+             flow), thresholds from `physics.SearchPhysics.sample`.
+  fused    — HD computed once per (query, row), compared against every T
+             in one pass (plain PyTorch; the oracle of the kernels).
+             `votes_fused_noisy` is its silicon twin: the same sampler,
+             equal to `faithful` in distribution (and draw for draw on the
+             same generator state), equal to `fused` when noiseless.
+  kernel   — the same vote through `kernels.fused_mlp.fused_mlp_votes`
+             in its head-only form (kernel 3 on the card: query in shared
+             memory, HD once, then the P-threshold compare), as the
+             reference routes it.
+
+Random draws come from a `torch.Generator` (`key=`), which matches the
+reference's `jax.random` keys in distribution, not draw for draw.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.core.bnn import FoldedLayer
 from repro_torch.core.cam import CAMArray, query_with_bias, write_weights_with_bias
+from repro_torch.core.device_model import AnalogParams, NoiseModel, NOISELESS
+from repro_torch.core.physics import SearchPhysics, achieved_sweep
 
 # Algorithm 1 line 3: HD threshold sweep {0, 2, 4, ..., 64} -> 33 passes.
 PAPER_THRESHOLDS = tuple(range(0, 65, 2))
 
-_NOISE_SLICE = "waits for the silicon-noise slice of the port"
-
 
 @dataclasses.dataclass(frozen=True)
 class EnsembleConfig:
-    """Algorithm-1 settings: threshold sweep, bias cells, execution mode.
-
-    `noise` and `calibrated` exist for parity with the reference; any
-    value other than the noiseless default raises NotImplementedError.
-    """
+    """Algorithm-1 settings: threshold sweep, bias cells, the PVT model of
+    `predict(mode="faithful")`, execution mode, and whether the head
+    deploys the knob schedule's calibrated (float) thresholds."""
 
     thresholds: Sequence[int] = PAPER_THRESHOLDS
     bias_cells: int = 64
-    noise: Any = None
-    mode: str = "fused"  # fused | kernel  (faithful: noise slice)
+    noise: NoiseModel = NOISELESS
+    mode: str = "fused"  # faithful | fused | kernel
     calibrated: bool = False
-
-    def __post_init__(self):
-        if self.noise is not None:
-            raise NotImplementedError(f"EnsembleConfig.noise {_NOISE_SLICE}")
 
     @property
     def n_passes(self) -> int:
@@ -64,8 +67,8 @@ class CAMEnsembleHead:
     """The deployed output layer: a CAM array + the threshold schedule.
 
     cam        : rows = classes; row = [binary weights | bias cells(C_j)]
-    thresholds : [n_passes] HD-space tolerances (int32; float32 once the
-                 noise slice brings calibrated thresholds)
+    thresholds : [n_passes] HD-space tolerances (int32; float32 for a
+                 calibrated head)
     """
 
     cam: CAMArray
@@ -91,17 +94,29 @@ def build_head(layer: FoldedLayer, cfg: EnsembleConfig) -> CAMEnsembleHead:
     ``T_t = n_total//2 - max(sweep)//2 + t`` — the 33 equispaced
     tolerances straddle the decision boundary (a raw absolute sweep over a
     192-bit row would never fire).
+
+    With ``cfg.calibrated`` the ideal integer sweep is replaced by the
+    knob schedule's achieved tolerances (`physics.achieved_sweep`), with
+    the same centring, as float32 (equispaced sweeps only: the schedule
+    targets ``linspace(0, max, P)``).
     """
-    if cfg.calibrated:
-        raise NotImplementedError(
-            f"build_head(calibrated=True) {_NOISE_SLICE}"
-        )
     cam = write_weights_with_bias(layer.weights_pm1, layer.c, cfg.bias_cells)
     n_total = layer.n_in + cfg.bias_cells
     center = n_total // 2
     sweep = np.asarray(cfg.thresholds, np.int64)
     offset = center - sweep.max() // 2
-    thresholds = torch.as_tensor(offset + sweep, dtype=torch.int32)
+    if cfg.calibrated:
+        if not np.array_equal(
+            sweep, np.linspace(0, sweep.max(), len(sweep)).round()
+        ):
+            raise ValueError(
+                "calibrated=True supports only an equispaced threshold "
+                f"sweep (the knob schedule targets it); got {sweep}"
+            )
+        t_hd = offset + achieved_sweep(len(sweep), int(sweep.max()))
+        thresholds = torch.from_numpy(np.asarray(t_hd, np.float32))
+    else:
+        thresholds = torch.as_tensor(offset + sweep, dtype=torch.int32)
     return CAMEnsembleHead(cam=cam, thresholds=thresholds,
                            bias_cells=cfg.bias_cells)
 
@@ -122,6 +137,50 @@ def votes_fused(head: CAMEnsembleHead, x_pm1: torch.Tensor) -> torch.Tensor:
     return _compare(head.cam.search_hd(q), head.thresholds)
 
 
+def _noisy_thresholds(head, hd, key, noise, params, physics):
+    phys = physics or SearchPhysics.for_head(head, noise, params)
+    return phys.sample(key, batch_shape=tuple(hd.shape[:-1]),
+                       n_rows=hd.shape[-1])
+
+
+def votes_faithful(head: CAMEnsembleHead, x_pm1: torch.Tensor, *,
+                   noise: NoiseModel = NOISELESS,
+                   key: Optional[torch.Generator] = None,
+                   params: Optional[AnalogParams] = None,
+                   physics: Optional[SearchPhysics] = None) -> torch.Tensor:
+    """The silicon flow: one search per threshold, per-pass PVT noise.
+
+    x_pm1: [..., n_in] ±1 activations -> int32 votes [..., classes].
+    The effective thresholds come from `SearchPhysics.sample` (every
+    NoiseModel term); pass `physics` to reuse a prebuilt bundle, else one
+    is built from (head, noise, params).  `key` is a `torch.Generator` on
+    the head's device.
+    """
+    q = query_with_bias(x_pm1, head.bias_cells)
+    hd = head.cam.search_hd(q).to(torch.float32)  # [..., C] (analog ML)
+    t_eff = _noisy_thresholds(head, hd, key, noise, params, physics)
+    votes = torch.zeros(hd.shape, dtype=torch.int32, device=hd.device)
+    for t in range(t_eff.shape[0]):  # one search per pass, as in silicon
+        votes += (hd <= t_eff[t]).to(torch.int32)
+    return votes
+
+
+def votes_fused_noisy(head: CAMEnsembleHead, x_pm1: torch.Tensor, *,
+                      key: Optional[torch.Generator],
+                      noise: NoiseModel = NOISELESS,
+                      params: Optional[AnalogParams] = None,
+                      physics: Optional[SearchPhysics] = None
+                      ) -> torch.Tensor:
+    """Fused sweep under PVT noise: HD once, sampled thresholds [P, ..., C]
+    compared in one vectorized step.  Draw for draw equal to
+    `votes_faithful` on the same generator state, bit-equal to
+    `votes_fused` when noiseless."""
+    q = query_with_bias(x_pm1, head.bias_cells)
+    hd = head.cam.search_hd(q).to(torch.float32)
+    t_eff = _noisy_thresholds(head, hd, key, noise, params, physics)
+    return (hd[None] <= t_eff).sum(0, dtype=torch.int32)
+
+
 def votes_kernel(head: CAMEnsembleHead, x_pm1: torch.Tensor) -> torch.Tensor:
     """The fused vote through kernel 3 with no hidden layers (its plain
     version on the CPU).  Same result as `votes_fused`."""
@@ -137,14 +196,16 @@ def votes_kernel(head: CAMEnsembleHead, x_pm1: torch.Tensor) -> torch.Tensor:
 
 
 def predict(head: CAMEnsembleHead, x_pm1: torch.Tensor,
-            cfg: EnsembleConfig) -> torch.Tensor:
-    """Algorithm 1 final prediction: per-class majority vote -> argmax."""
-    if cfg.mode == "fused":
+            cfg: EnsembleConfig, *,
+            key: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Algorithm 1 final prediction: per-class majority vote -> argmax
+    (`key` feeds the faithful mode's noise)."""
+    if cfg.mode == "faithful":
+        v = votes_faithful(head, x_pm1, noise=cfg.noise, key=key)
+    elif cfg.mode == "fused":
         v = votes_fused(head, x_pm1)
     elif cfg.mode == "kernel":
         v = votes_kernel(head, x_pm1)
-    elif cfg.mode == "faithful":
-        raise NotImplementedError(f"mode='faithful' {_NOISE_SLICE}")
     else:
         raise ValueError(f"unknown ensemble mode {cfg.mode!r}")
     return torch.argmax(v, dim=-1)
@@ -185,3 +246,17 @@ def sweep_from_votes(votes: torch.Tensor, n_passes: int) -> torch.Tensor:
     )
     v = votes[None] - (n_passes - p)
     return torch.minimum(torch.clamp(v, min=0), p).to(torch.int32)
+
+
+def accuracy_sweep(head: CAMEnsembleHead, hidden_pm1: torch.Tensor, labels,
+                   cfg: EnsembleConfig, *,
+                   key: Optional[torch.Generator] = None,
+                   topk=(1, 2)) -> dict[int, dict[str, float]]:
+    """Fig. 5: accuracy of Algorithm 1 truncated to its first p passes,
+    p = 1..n_passes, under `cfg.noise` (one realization from `key`).
+    Returns {p: {"top1": ..., "top2": ...}}."""
+    q = query_with_bias(hidden_pm1, head.bias_cells)
+    hd = head.cam.search_hd(q).to(torch.float32)  # [B, C]
+    t_eff = _noisy_thresholds(head, hd, key, cfg.noise, None, None)
+    cum = torch.cumsum((hd[None] <= t_eff).to(torch.int32), dim=0)
+    return accuracy_from_cumulative(cum, labels, topk)

@@ -1,5 +1,4 @@
-"""End-to-end deployed-BNN inference pipeline (port of `repro/pipeline.py`,
-noiseless).
+"""End-to-end deployed-BNN inference pipeline (port of `repro/pipeline.py`).
 
 `compile_pipeline(folded, ens_cfg)` turns a folded binary MLP (a list of
 `bnn.FoldedLayer`), or a binary CNN (a prefix of
@@ -28,20 +27,43 @@ A CNN (`image_side=`) takes raw [0,1] pixels [B, side*side], which the
 binary input layer (`image_encoding`, thermometer by default) packs
 into channel words.  Votes and argmax go through
 `kernels.fused_conv.fused_conv_votes` (kernel 4: conv stack, flatten,
-FC layers and vote in one launch); the cumulative staircase runs
-`kernels.fused_conv.conv_stage_packed` (kernel 4 stopped after the
-flatten) and then `head_hd`.  Every path is bit-exact equal to the JAX
-reference.
+FC layers and vote in one launch); the routes that need the head
+distances run `kernels.fused_conv.conv_stage_packed` (kernel 4 stopped
+after the flatten) and then `head_hd`.  Every noiseless path is
+bit-exact equal to the JAX reference.
+
+Silicon mode: `compile_pipeline(folded, cfg, noise=SILICON)` builds the
+head's `physics.SearchPhysics` (the pipeline's `physics`): per-pass
+effective thresholds are sampled as float32 and only the head compare
+changes.  The spec's `noise` axis selects the draw:
+
+  "batch"       — one realization for the whole (bucket-padded) batch
+                  from `key=`, a `torch.Generator` on the pipeline's
+                  device: exactly what one `physics.sample(key, (Bp,), C)`
+                  draws (with `mc_samples=S`, one
+                  `physics.sample(key, (S, Bp), C)`).  Votes and argmax
+                  launch kernel 3 (MLP) or 4 (CNN) with the samples as
+                  its [B, C, P] `thr_samples` operand.
+  "per_request" — row i's draws from its own raw uint32 key words
+                  `keys[i]` ([B, 2]) through a counter-based generator
+                  (`physics.SearchPhysics.sample_keyed`), so results do
+                  not depend on how requests are coalesced or padded (the
+                  serving determinism contract); pad rows get zero keys.
+
+Monte-Carlo (`mc_samples`), per-request and noisy cumulative specs
+compute the head distances once (`head_hd`, after `conv_stage_packed`
+for a CNN) and compare them against the samples in PyTorch, as the
+reference does in plain XLA.  With `noise=NOISELESS` every noisy spec
+is bit-identical to the noiseless votes.  The draws agree with the
+reference's in distribution: a torch generator does not reproduce
+`jax.random`.
 
 Batch-size bucketing: inputs are zero-padded to the next power-of-two
 bucket (floor `min_bucket`), and results are trimmed back; rows are
 independent, so results do not depend on the padding, and a serving loop
 meets O(log B) distinct shapes (`warmup` covers them).
 
-What waits for later slices, and how it fails: the silicon-noise specs
-raise ValueError (as the reference does for a pipeline compiled without
-noise); `compile_pipeline(noise=...)` and `donate=` raise
-NotImplementedError.
+`donate=` raises NotImplementedError (no counterpart in the port).
 """
 
 from __future__ import annotations
@@ -54,9 +76,12 @@ import numpy as np
 import torch
 
 from repro_torch.core import binarize
+from repro_torch.core import keys as _keys
 from repro_torch.core.cam import query_with_bias
 from repro_torch.core.convnet import is_conv_layer
+from repro_torch.core.device_model import AnalogParams, NoiseModel
 from repro_torch.core.ensemble import CAMEnsembleHead, EnsembleConfig, build_head
+from repro_torch.core.physics import SearchPhysics
 from repro_torch.kernels import fused_conv, fused_mlp, ops
 from repro_torch.spec import InferenceSpec
 
@@ -184,17 +209,20 @@ class CompiledPipeline:
     head_only: bool  # MLP with no hidden layers: input feeds the CAM head
     max_bucket: Optional[int] = None  # serving cap on the bucket grid
     conv: Optional[ConvFront] = None  # the conv stack of a CNN
+    physics: Optional[SearchPhysics] = None  # None <=> compiled without noise=
     _programs: dict = dataclasses.field(default_factory=dict, repr=False)
 
     # ------------------------------------------------------------------
     # the compiled-request API
     # ------------------------------------------------------------------
     def program(self, spec: InferenceSpec) -> Callable:
-        """The program for `spec` (built and cached on first use):
-        `f(x_packed)` for a bucket-shaped packed batch."""
+        """The program for `spec` (built and cached on first use), on a
+        bucket-shaped packed batch: `f(x_packed)` for noise "off",
+        `f(x_packed, generator)` for "batch", `f(x_packed, key_words)`
+        for "per_request" (`run_packed` dispatches accordingly)."""
         prog = self._programs.get(spec)
         if prog is None:
-            if spec.needs_physics:  # the noise slice brings silicon mode
+            if spec.needs_physics and self.physics is None:
                 raise ValueError(
                     f"{spec.describe()} needs a silicon-mode pipeline: "
                     "recompile with compile_pipeline(..., noise=<NoiseModel>)"
@@ -210,8 +238,11 @@ class CompiledPipeline:
         x    : [B, n_in] ±1 activations for an MLP, [B, side*side] raw
                [0,1] pixels for a CNN (a tensor, on any device, or an
                array); moved to the pipeline's device.
-        spec : what to run.  key / keys belong to the noisy specs and are
-               rejected here.
+        spec : what to run.
+        key  : a `torch.Generator` on the pipeline's device — required iff
+               spec.noise == "batch" (each call is one realization).
+        keys : per-request raw uint32 key words [B, 2] (numpy, or an
+               integer tensor) — required iff spec.noise == "per_request".
 
         Returns int32 votes/predictions shaped per the spec, trimmed to the
         logical batch, on the pipeline's device.
@@ -225,20 +256,49 @@ class CompiledPipeline:
     def run_packed(self, x_packed: torch.Tensor, spec: InferenceSpec, *,
                    key=None, keys=None) -> torch.Tensor:
         """`run` for an already-packed input batch [B, Kw0] (int32; a CNN's
-        is [B, side*side*Cw0], the channel-packed pixels)."""
-        prog = self.program(spec)  # noise capability check happens here
-        if key is not None or keys is not None:
-            raise ValueError(
-                f'{spec.describe()} is deterministic (noise="off"): '
-                "it accepts neither key= nor keys="
-            )
+        is [B, side*side*Cw0], the channel-packed pixels).  The one place
+        bucket padding, key validation and result trimming happen."""
+        prog = self.program(spec)  # physics capability check happens here
         x_packed, b = self._bucketed(x_packed)
-        return self._trim(prog(x_packed), b, spec.batch_axis)
+        if spec.needs_keys:
+            if key is not None:
+                raise ValueError(
+                    f"{spec.describe()} takes per-request keys=, not a "
+                    "batch-level key="
+                )
+            if keys is None:
+                raise ValueError(
+                    f"{spec.describe()} needs per-request keys= "
+                    "([B, 2] raw uint32 PRNG keys)"
+                )
+            out = prog(x_packed, self._each_keys(keys, b, x_packed.shape[0]))
+        elif spec.needs_key:
+            if keys is not None:
+                raise ValueError(
+                    f"{spec.describe()} takes one batch-level key=, not "
+                    "per-request keys="
+                )
+            if key is None:
+                raise ValueError(
+                    f"{spec.describe()} needs an explicit key= (each call "
+                    "is one silicon realization)"
+                )
+            out = prog(x_packed, self._generator(key))
+        else:
+            if key is not None or keys is not None:
+                raise ValueError(
+                    f'{spec.describe()} is deterministic (noise="off"): '
+                    "it accepts neither key= nor keys="
+                )
+            out = prog(x_packed)
+        return self._trim(out, b, spec.batch_axis)
 
     # ------------------------------------------------------------------
     # programs
     # ------------------------------------------------------------------
-    def _votes(self, x_packed: torch.Tensor) -> torch.Tensor:
+    def _votes(self, x_packed: torch.Tensor,
+               thr_samples: Optional[torch.Tensor] = None) -> torch.Tensor:
+        # the kernel-eligible vote producer: kernel 3 or 4, one [B, C] block
         head, conv = self.head, self.conv
         if conv is not None:
             return fused_conv.fused_conv_votes(
@@ -246,16 +306,16 @@ class CompiledPipeline:
                 self.layer_ws, self.layer_cs, self.layer_n_bits,
                 head.cam.rows_packed, head.thresholds,
                 bias_cells=head.bias_cells, head_direct=conv.head_direct,
+                thr_samples=thr_samples,
             )
         return fused_mlp.fused_mlp_votes(
             x_packed, self.layer_ws, self.layer_cs, self.layer_n_bits,
             head.cam.rows_packed, head.thresholds,
-            bias_cells=head.bias_cells,
+            bias_cells=head.bias_cells, thr_samples=thr_samples,
         )
 
-    def _staircase(self, x_packed: torch.Tensor) -> torch.Tensor:
-        # the exact noiseless staircase: per-pass match indicators of the
-        # deterministic compare, summed cumulatively over passes
+    def _head_distances(self, x_packed: torch.Tensor) -> torch.Tensor:
+        # [B, C] int32: the one quantity every HD-once route compares
         conv = self.conv
         if conv is not None:  # the flattened conv features, then FC/head
             x_packed = fused_conv.conv_stage_packed(
@@ -263,24 +323,66 @@ class CompiledPipeline:
                 bias_cells=self.head.bias_cells if conv.head_direct else 0,
                 kw_q=(self.layer_ws[0] if self.layer_ws
                       else self.head.cam.rows_packed).shape[1])
-        hd = head_hd(x_packed, self.layer_ws, self.layer_cs,
-                     self.layer_n_bits, self.head.cam.rows_packed,
-                     self.head.bias_cells)
+        return head_hd(x_packed, self.layer_ws, self.layer_cs,
+                       self.layer_n_bits, self.head.cam.rows_packed,
+                       self.head.bias_cells)
+
+    def _staircase(self, x_packed: torch.Tensor) -> torch.Tensor:
+        # the exact noiseless staircase: per-pass match indicators of the
+        # deterministic compare, summed cumulatively over passes
+        hd = self._head_distances(x_packed)
         thr = self.head.thresholds
         if thr.is_floating_point():
             hd = hd.to(torch.float32)
         per = hd[None, :, :] <= thr[:, None, None]
         return torch.cumsum(per, dim=0, dtype=torch.int32)
 
+    def _votes_batch(self, x_packed: torch.Tensor,
+                     gen: torch.Generator) -> torch.Tensor:
+        # one batch draw [P, Bp, C] -> the kernel's [Bp, C, P] operand
+        t = self.physics.sample(gen, (x_packed.shape[0],), self.n_classes)
+        return self._votes(x_packed,
+                           thr_samples=t.movedim(0, -1).contiguous())
+
     def _make_program(self, spec: InferenceSpec) -> Callable:
+        phys, n_cls, mc = self.physics, self.n_classes, spec.mc_samples
+
+        def compare(x_packed, t):  # HD once against [P, ..., Bp, C] samples
+            hd = self._head_distances(x_packed).to(torch.float32)
+            return hd <= t
+
         if spec.cumulative:
-            return self._staircase
-        if spec.reduction == "argmax":
-            def fn(x_packed):
-                return torch.argmax(self._votes(x_packed), dim=-1).to(
-                    torch.int32)
+            if spec.noise == "off":
+                return self._staircase
+
+            def fn(x_packed, gen):
+                t = phys.sample(gen, (x_packed.shape[0],), n_cls)
+                return torch.cumsum(compare(x_packed, t), dim=0,
+                                    dtype=torch.int32)
             return fn
-        return self._votes
+        if spec.noise == "off":
+            fn = self._votes
+        elif spec.noise == "batch" and mc is None:
+            fn = self._votes_batch
+        else:
+            def fn(x_packed, rng):
+                if spec.noise == "batch":  # S realizations, one draw
+                    t = phys.sample(rng, (mc, x_packed.shape[0]), n_cls)
+                else:  # [P, S, Bp, C] from each row's own key
+                    t = phys.sample_keyed(rng, n_cls, mc or 1)
+                out = compare(x_packed, t).sum(0, dtype=torch.int32)
+                if mc is None:
+                    return out[0]
+                if spec.reduction == "sum":
+                    return out.sum(0, dtype=torch.int32)
+                return out  # [S, Bp, C]
+        if spec.reduction == "argmax":
+            base = fn
+
+            def fn(x_packed, *rng):
+                return torch.argmax(base(x_packed, *rng), dim=-1).to(
+                    torch.int32)
+        return fn
 
     # ------------------------------------------------------------------
     # shared glue (packing / bucketing / trimming)
@@ -305,12 +407,58 @@ class CompiledPipeline:
             return out
         return out[:b] if axis == 0 else out[:, :b]
 
+    def _generator(self, key) -> torch.Generator:
+        if not isinstance(key, torch.Generator):
+            raise TypeError(
+                "key= must be a torch.Generator on the pipeline's device "
+                f"({self.device}), got {type(key).__name__}"
+            )
+        dev = torch.device(key.device)
+        if dev.type != self.device.type or (
+                dev.type == "cuda"
+                and (dev.index or 0) != (self.device.index or 0)):
+            raise ValueError(f"key= is a generator on {dev}; the pipeline "
+                             f"runs on {self.device}")
+        return key
+
+    def _each_keys(self, keys, b: int, bp: int) -> torch.Tensor:
+        words = _keys.as_key_words(keys, self.device)
+        if words.ndim != 2 or words.shape[0] != b or words.shape[1] != 2:
+            raise ValueError(
+                f"keys must be [B, 2] raw uint32 PRNG keys with B == batch "
+                f"({b}), got shape {tuple(words.shape)}"
+            )
+        if bp != b:  # pad rows get (valid) zero keys; results are sliced
+            words = torch.nn.functional.pad(words, (0, 0, 0, bp - b))
+        return words
+
     def buckets_for(self, max_batch: int) -> tuple[int, ...]:
         """The bucket grid batches 1..max_batch dispatch into."""
         return bucket_grid(max_batch, self.min_bucket)
 
+    def default_warmup_specs(self, mc_samples: Optional[int] = None
+                             ) -> tuple[InferenceSpec, ...]:
+        """Every spec this pipeline supports out of the box: the plain
+        votes, plus for a silicon-mode pipeline the batch-draw and
+        per-request programs, and the Monte-Carlo family when
+        `mc_samples` is given."""
+        if self.physics is None:
+            return (InferenceSpec(),)
+        specs = [InferenceSpec(), InferenceSpec(noise="batch"),
+                 InferenceSpec(noise="per_request")]
+        if mc_samples:
+            specs += [
+                InferenceSpec(noise="batch", mc_samples=mc_samples),
+                InferenceSpec(noise="per_request", mc_samples=mc_samples),
+                InferenceSpec(noise="per_request", mc_samples=mc_samples,
+                              reduction="sum"),
+            ]
+        return tuple(specs)
+
     def warmup(self, max_batch: int, *,
-               specs: Optional[Sequence[InferenceSpec]] = None
+               specs: Optional[Sequence[InferenceSpec]] = None,
+               key: Optional[torch.Generator] = None,
+               mc_samples: Optional[int] = None
                ) -> dict[tuple[InferenceSpec, int], float]:
         """Run one dummy batch per (spec, bucket) a serving loop can meet.
 
@@ -318,25 +466,32 @@ class CompiledPipeline:
         source hash) and loads them, and the caching allocator sizes its
         blocks, so none of that lands in served latencies.  Returns
         {(spec, bucket): seconds}, each ended by a device synchronise.
-        specs defaults to the plain vote program.  The dummy batches are
-        all ones: ±1 activations for an MLP, full-intensity pixels for a
-        CNN.
+        specs defaults to `default_warmup_specs(mc_samples)`.  The dummy
+        batches are all ones (±1 activations for an MLP, full-intensity
+        pixels for a CNN); batch draws come from `key` (default a
+        generator seeded 0), per-request keys are (0, row).
         """
-        specs = (InferenceSpec(),) if specs is None else specs
+        specs = self.default_warmup_specs(mc_samples) if specs is None \
+            else specs
         for spec in specs:  # capability check before any work
-            if spec.needs_physics:
+            if spec.needs_physics and self.physics is None:
                 raise ValueError(
                     f"warmup of {spec.describe()} needs a silicon-mode "
                     "pipeline: recompile with compile_pipeline(..., "
                     "noise=<NoiseModel>)"
                 )
+        gen = key if key is not None else \
+            torch.Generator(self.device).manual_seed(0)
         times: dict[tuple[InferenceSpec, int], float] = {}
         for b in self.buckets_for(max_batch):
             x = torch.ones((b, self.n_in), dtype=torch.float32,
                            device=self.device)
+            ks = torch.stack([torch.zeros(b, dtype=torch.int64),
+                              torch.arange(b, dtype=torch.int64)], dim=1)
             for spec in specs:
                 t0 = time.perf_counter()
-                self.run(x, spec)
+                self.run(x, spec, key=gen if spec.needs_key else None,
+                         keys=ks if spec.needs_keys else None)
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
                 times[(spec, b)] = time.perf_counter() - t0
@@ -354,6 +509,7 @@ class CompiledPipeline:
             layer_ws=tuple(w.to(dev) for w in self.layer_ws),
             layer_cs=tuple(c.to(dev) for c in self.layer_cs),
             conv=None if self.conv is None else self.conv.to(dev),
+            physics=None if self.physics is None else self.physics.to(dev),
             device=dev,
             _programs={},
         )
@@ -366,8 +522,8 @@ def compile_pipeline(
     min_bucket: int = 64,
     max_bucket: int | None = None,
     device=None,
-    noise=None,
-    params=None,
+    noise: NoiseModel | None = None,
+    params: AnalogParams | None = None,
     donate: bool = False,
     image_side: int | None = None,
     image_encoding: binarize.InputEncoding | None = None,
@@ -386,19 +542,19 @@ def compile_pipeline(
     device  : None -> the CUDA card (raises without CUDA); "cpu" runs the
               kernels' plain versions.
     max_bucket : optional cap on the bucket grid (see next_bucket).
+    noise   : optional `device_model.NoiseModel` — enables the silicon
+              specs (noise="batch"/"per_request", Monte-Carlo, noisy
+              cumulative) through `physics.SearchPhysics.for_head` of the
+              head's schedule; `params` overrides the AnalogParams.
+              noise=None keeps the pipeline noiseless-only.
     image_side : required for conv graphs — the square input image side.
               Rejected for MLP graphs.
     image_encoding : the binary input layer of a conv graph
               (`binarize.InputEncoding`); its width must equal the first
               conv layer's c_in.  Default: thermometer of that width.
 
-    noise / params (silicon noise) and donate= raise NotImplementedError.
+    donate= raises NotImplementedError.
     """
-    if noise is not None or params is not None:
-        raise NotImplementedError(
-            "compile_pipeline(noise=/params=) waits for the silicon-noise "
-            "slice of the port"
-        )
     if donate:
         raise NotImplementedError("donate= has no counterpart in the port yet")
     ens_cfg = ens_cfg or EnsembleConfig()
@@ -420,7 +576,11 @@ def compile_pipeline(
     dev = resolve_device(device)
 
     hidden, out_layer = rest[:-1], rest[-1]
-    head = build_head(out_layer, ens_cfg).to(dev)
+    head = build_head(out_layer, ens_cfg)
+    # the knob-schedule inversion runs on the host, then moves
+    phys = (None if noise is None
+            else SearchPhysics.for_head(head, noise, params).to(dev))
+    head = head.to(dev)
     w_bits = [(np.asarray(l.weights_pm1) > 0).astype(np.uint8)
               for l in hidden]
     layer_ws = [binarize.words_to_torch(binarize.np_pack_bits(b), dev)
@@ -477,4 +637,5 @@ def compile_pipeline(
         head_only=not hidden and conv is None,
         max_bucket=max_bucket,
         conv=conv,
+        physics=phys,
     )

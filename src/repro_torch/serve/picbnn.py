@@ -1,6 +1,6 @@
 """PiC-BNN classification serving engine (port of `repro/serve/picbnn.py`,
-noiseless, round-robin fan-out): async micro-batching over compiled
-pipelines on CUDA devices.
+round-robin fan-out): async micro-batching over compiled pipelines on
+CUDA devices.
 
     server = PicBnnServer(BatchingPolicy(max_batch=256, max_wait_us=500))
     server.register("mnist", compile_pipeline(folded, cfg))
@@ -26,14 +26,17 @@ Threads:
 
 A request is one row of what the model's `CompiledPipeline.run` takes:
 [n_in] ±1 activations for an MLP, [side*side] raw [0,1] pixels for a CNN.
-Results equal a direct `CompiledPipeline.run` on the same rows: bucketing
-is padding-invariant and every row is computed independently.
+A model is a `CompiledPipeline`, a `deploy.Deployment` or a saved
+deployment directory.  A silicon model (its pipeline's physics is not
+noiseless) serves `InferenceSpec(noise="per_request")` (with
+`mc_samples=S, reduction="sum"` when registered with `mc_samples`): each
+request carries its own raw uint32 [2] key words, and a bucket's pad
+rows get zero keys.  Results equal a direct `CompiledPipeline.run` on the
+same rows (and keys): bucketing is padding-invariant and every row is
+computed independently.
 
-What waits for later slices, and how it fails: `fanout="spmd"`,
-registering a `Deployment` or a saved directory, silicon models
-(`key(s)=`, `mc_samples`) and the Table-II `layer_sizes`/`silicon_cost`
-stats.  Each raises NotImplementedError (or, where the reference already
-rejects the request for a noiseless pipeline, the reference's ValueError).
+What waits for later slices, and how it fails: `fanout="spmd"` and the
+Table-II `layer_sizes`/`silicon_cost` stats raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.deploy import Deployment
 from repro_torch.pipeline import CompiledPipeline, next_bucket, resolve_device
 from repro_torch.serve.scheduler import (
     BatchingPolicy,
@@ -93,14 +97,15 @@ class _Slab:
     [slab_lo, slab_lo+k) became rows [batch_lo, batch_lo+k) of `batch`.
     """
 
-    __slots__ = ("uid0", "model_id", "x", "t_submit", "n", "placed",
+    __slots__ = ("uid0", "model_id", "x", "keys", "t_submit", "n", "placed",
                  "spans")
 
     def __init__(self, uid0: int, model_id: str, x: np.ndarray,
-                 t_submit: float):
+                 keys: Optional[np.ndarray], t_submit: float):
         self.uid0 = uid0
         self.model_id = model_id
         self.x = x
+        self.keys = keys  # [n, 2] uint32 for silicon models, else None
         self.t_submit = t_submit
         self.n = len(x)
         self.placed = 0
@@ -241,6 +246,7 @@ class _Model:
 
     model_id: str
     pipes: list  # pipes[i] lives on the server's devices[i]
+    silicon: bool  # per-request keyed draws (physics not noiseless)
     spec: InferenceSpec  # the ONE spec every dispatch for this model runs
 
     @property
@@ -357,34 +363,55 @@ class PicBnnServer:
                  layer_sizes: Optional[Sequence[int]] = None,
                  silicon_cost=None, mc_samples: int = 0,
                  warmup: bool = False) -> None:
-        """Add a model (a `CompiledPipeline`, MLP or CNN) to the registry.
+        """Add a model to the registry.
 
-        The pipeline, conv operands included, is copied onto every serving
-        device (`CompiledPipeline.to`).  Every one of
-        the model's micro-batches runs `InferenceSpec()` (the votes; the
-        prediction is their argmax).  warmup=True runs the model's whole
-        bucket grid on every device now.
+        model : a `CompiledPipeline` (MLP or CNN), a `deploy.Deployment`
+            (compiled here on the first serving device), or a str/Path to
+            a saved deployment directory (`Deployment.save` output, from
+            either package).  The pipeline, conv operands and physics
+            included, is copied onto every serving device
+            (`CompiledPipeline.to`).
+        mc_samples : > 0 serves a silicon model's requests through the
+            per-request Monte-Carlo spec, the prediction of the summed
+            votes; 0 serves one realization per request.
+        warmup : run the model's whole bucket grid on every device now.
+
+        The model's dispatch spec is fixed here: `InferenceSpec()` for a
+        noiseless model, `InferenceSpec(noise="per_request"[,
+        mc_samples=S, reduction="sum"])` for a silicon one.
         """
         if self._started:
             raise RuntimeError("register() before start()")
         if model_id in self._models:
             raise ValueError(f"model {model_id!r} already registered")
-        if isinstance(model, (str, Path)) or not isinstance(
-                model, CompiledPipeline):
-            raise NotImplementedError(
-                "registering a Deployment or a saved directory waits for "
-                "the deployment slice of the port; pass a CompiledPipeline"
-            )
         if layer_sizes is not None or silicon_cost is not None:
             raise NotImplementedError(
                 "Table-II stats (layer_sizes=/silicon_cost=) wait for the "
                 "cost-model slice of the port (core/mapping.py)"
             )
-        if mc_samples:
+        if isinstance(model, (str, Path)):
+            model = Deployment.load(model)
+        if isinstance(model, Deployment):
+            model = model.pipeline(self.devices[0])
+        if not isinstance(model, CompiledPipeline):
+            raise TypeError(
+                "register() takes a CompiledPipeline, a Deployment or a "
+                f"saved deployment directory, got {type(model).__name__}"
+            )
+        phys = model.physics
+        silicon = phys is not None and not phys.is_noiseless
+        if mc_samples and not silicon:
             raise ValueError("mc_samples needs a silicon-mode pipeline")
+        if silicon:
+            spec = (InferenceSpec(noise="per_request",
+                                  mc_samples=int(mc_samples),
+                                  reduction="sum")
+                    if mc_samples else InferenceSpec(noise="per_request"))
+        else:
+            spec = InferenceSpec()
         m = _Model(model_id=model_id,
                    pipes=[model.to(d) for d in self.devices],
-                   spec=InferenceSpec())
+                   silicon=silicon, spec=spec)
         self._models[model_id] = m
         if warmup:
             self._warm_model(m)
@@ -480,10 +507,6 @@ class PicBnnServer:
                            f"{sorted(self._models)}")
         if self._closed:
             raise RuntimeError("server is closed")
-        if keys is not None:
-            raise ValueError(
-                f"model {model_id!r} is noiseless: key(s)= not accepted"
-            )
         x = np.asarray(images, np.float32)
         if single:
             x = x.reshape(1, -1) if x.ndim == 1 else x
@@ -495,10 +518,28 @@ class PicBnnServer:
                 f"{m.pipe.n_in}] for model {model_id!r}, got shape "
                 f"{np.shape(images)}"
             )
+        if m.silicon:
+            if keys is None:
+                raise ValueError(
+                    f"model {model_id!r} is silicon-mode: each request "
+                    "must carry its own PRNG key (key(s)=...)"
+                )
+            keys = np.asarray(keys, np.uint32)
+            if single:
+                keys = keys.reshape(1, -1) if keys.ndim == 1 else keys
+            if keys.shape != (len(x), 2):
+                raise ValueError(
+                    f"keys must be raw uint32 [{len(x)}, 2] PRNG keys, "
+                    f"got {keys.shape}"
+                )
+        elif keys is not None:
+            raise ValueError(
+                f"model {model_id!r} is noiseless: key(s)= not accepted"
+            )
         with self._uid_lock:
             uid0 = self._uid
             self._uid += len(x)
-        slab = _Slab(uid0, model_id, x, t_submit)
+        slab = _Slab(uid0, model_id, x, keys, t_submit)
         self._batcher.put(model_id, slab, size=slab.n, t_enqueue=t_submit,
                           block=block, timeout=timeout)
         return slab
@@ -510,7 +551,9 @@ class PicBnnServer:
 
         image : [n_in] ±1 activations for an MLP, [side*side] [0,1]
             pixels for a CNN (anything np.asarray-able).
-        key   : per-request noise key — silicon models only, so rejected.
+        key   : the request's raw uint32 [2] key words — required for a
+            silicon model (its draw depends on nothing else), rejected
+            for a noiseless one.
         block/timeout : admission behavior when `max_queue` is bounded;
             block=False raises QueueFullError instead of waiting.
         """
@@ -526,7 +569,7 @@ class PicBnnServer:
         Each image is still an independent request (own uid, free to be
         coalesced with other traffic and split across micro-batches), but
         the burst is admitted and queued as ONE contiguous slab.
-        `images`: [W, n_in].
+        `images`: [W, n_in]; `keys`: [W, 2] uint32 for silicon models.
         """
         slab = self._admit(model_id, images, keys, False, block, timeout)
         return GroupHandle(slab, self)
@@ -563,8 +606,9 @@ class PicBnnServer:
             self._inflight_cond.notify_all()
 
     def _launch(self, pipe: CompiledPipeline, spec: InferenceSpec,
-                x: np.ndarray, stream):
-        """Stage `x` on the pipeline's device, run it, start the readback.
+                x: np.ndarray, keys: Optional[np.ndarray], stream):
+        """Stage `x` (and a silicon model's key words) on the pipeline's
+        device, run it, start the readback.
 
         Returns (votes, event): on a CUDA device `votes` is a pinned host
         tensor filled by a non-blocking copy that `event` (recorded after
@@ -572,7 +616,7 @@ class PicBnnServer:
         """
         dev = pipe.device
         if dev.type != "cuda":
-            return pipe.run(torch.from_numpy(x), spec), None
+            return pipe.run(torch.from_numpy(x), spec, keys=keys), None
         with torch.cuda.device(dev), torch.cuda.stream(stream):
             # pinned blocks come from PyTorch's caching host allocator,
             # which holds a block back until the copies that used it have
@@ -580,7 +624,13 @@ class PicBnnServer:
             xh = torch.empty(x.shape, dtype=torch.float32, pin_memory=True)
             xh.numpy()[...] = x
             xd = xh.to(dev, non_blocking=True)
-            votes = pipe.run(xd, spec)
+            kd = None
+            if keys is not None:
+                kh = torch.empty(keys.shape, dtype=torch.int64,
+                                 pin_memory=True)
+                kh.numpy()[...] = keys
+                kd = kh.to(dev, non_blocking=True)
+            votes = pipe.run(xd, spec, keys=kd)
             vh = torch.empty(votes.shape, dtype=votes.dtype, pin_memory=True)
             vh.copy_(votes, non_blocking=True)
             event = torch.cuda.Event()
@@ -593,20 +643,24 @@ class PicBnnServer:
         pipe = m.pipe
         bucket = next_bucket(n, pipe.min_bucket, pipe.max_bucket)
         # assemble straight into a bucket-sized host buffer (pad rows are
-        # zeros, dropped at readback), one vectorized copy per span
+        # zeros with zero keys, dropped at readback), one vectorized copy
+        # per span
         x = np.zeros((bucket, pipe.n_in), np.float32)
+        keys = np.zeros((bucket, 2), np.uint32) if m.silicon else None
         t_subs = np.empty(n)
         placed = []
         pos = 0
         for s in spans:
             k, slab = s.n, s.lot
             x[pos:pos + k] = slab.x[s.lo:s.hi]
+            if m.silicon:
+                keys[pos:pos + k] = slab.keys[s.lo:s.hi]
             t_subs[pos:pos + k] = slab.t_submit
             placed.append((slab, s.lo, pos, k))
             pos += k
         dev_idx = self._next_dev
         self._next_dev = (self._next_dev + 1) % len(self.devices)
-        votes, event = self._launch(m.pipes[dev_idx], m.spec, x,
+        votes, event = self._launch(m.pipes[dev_idx], m.spec, x, keys,
                                     self._streams[dev_idx])
         batch = _Batch(m.model_id, n, bucket, dev_idx, t_dispatch, t_subs)
         for slab, lo, bpos, k in placed:

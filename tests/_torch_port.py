@@ -56,3 +56,34 @@ def i32(a):
         a = a.cpu().numpy()
     a = np.asarray(a)
     return a.view(np.int32) if a.dtype == np.uint32 else a.astype(np.int32)
+
+
+# A small end-to-end binary CNN (tests/test_deploy.py's TINY_CNN): the conv
+# prefix, thermometer input and position-wise FC repack at a fast size.
+TINY_CNN = (12, ("thermometer", 4), ((3, 32, 2),), (64,), 5)
+
+
+def cnn_configs(spec=TINY_CNN):
+    """(side, encoding, convs, hidden, classes) as the reference's
+    CNNConfig and as the port's."""
+    from repro.core import binarize as jbin
+    from repro.core import convnet as jconv
+    from repro_torch.core import binarize as tbin
+    from repro_torch.core import convnet as tconv
+
+    side, enc, convs, hidden, n_cls = spec
+    return tuple(
+        m.CNNConfig(side=side, encoding=b.InputEncoding(*enc),
+                    conv=tuple(m.ConvSpec(*c) for c in convs),
+                    hidden=hidden, n_classes=n_cls)
+        for m, b in ((jconv, jbin), (tconv, tbin)))
+
+
+def random_cnn(seed, spec=TINY_CNN):
+    """Random folded CNN as (reference layers, port layers, reference
+    config, port config)."""
+    from repro.core import convnet as jconv
+
+    jcfg, tcfg = cnn_configs(spec)
+    jf = jconv.random_folded_cnn(jcfg, seed=seed)
+    return jf, convert.folded_from_jax(jf), jcfg, tcfg

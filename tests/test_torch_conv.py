@@ -432,8 +432,12 @@ def test_compile_pipeline_conv_validation():
                                   device="cpu")
     with pytest.raises(ValueError, match="flattened conv features"):
         tpipe.compile_pipeline(folded, cfg, device="cpu", image_side=12)
-    with pytest.raises(NotImplementedError, match="deployment"):
-        tpaper.deploy_cnn(tc, folded)
+    # deploy_cnn is ported: it builds a Deployment with the config's
+    # geometry, and refuses an option the reference does not know
+    dep = tpaper.deploy_cnn(tc, folded, device="cpu")
+    assert (dep.image_side, dep.image_encoding) == (tc.side, tc.encoding)
+    with pytest.raises(ValueError, match="unknown compile options"):
+        tpaper.deploy_cnn(tc, folded, block_size=4)
 
 
 def test_paper_cnn_configs_match_reference():

@@ -124,11 +124,21 @@ def test_fold_from_trained_params_matches_reference():
 
 
 def test_noise_slice_raises():
-    with pytest.raises(NotImplementedError, match="noise"):
-        tens.EnsembleConfig(noise=object())
+    """The noise slice is ported: a noisy config, a calibrated head and the
+    faithful mode work (the noiseless faithful mode equals the fused
+    one); what still raises is the reference's ValueErrors."""
+    from repro_torch.core.device_model import SILICON
+
+    assert tens.EnsembleConfig(noise=SILICON).noise == SILICON
     _, _, tf, _, th = _heads("2048x64")
-    with pytest.raises(NotImplementedError, match="noise"):
-        tens.build_head(tf[-1], tens.EnsembleConfig(calibrated=True))
-    with pytest.raises(NotImplementedError, match="noise"):
-        tens.predict(th, torch.ones(2, 32), tens.EnsembleConfig(
-            mode="faithful"))
+    cal = tens.build_head(tf[-1], tens.EnsembleConfig(calibrated=True))
+    assert cal.thresholds.dtype == torch.float32
+    with pytest.raises(ValueError, match="equispaced"):
+        tens.build_head(tf[-1], tens.EnsembleConfig(thresholds=(0, 1, 3),
+                                                    calibrated=True))
+    x = torch.ones(2, 32)
+    assert torch.equal(
+        tens.predict(th, x, tens.EnsembleConfig(mode="faithful")),
+        tens.predict(th, x, tens.EnsembleConfig(mode="fused")))
+    with pytest.raises(ValueError, match="mode"):
+        tens.predict(th, x, tens.EnsembleConfig(mode="analog"))

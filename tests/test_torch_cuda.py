@@ -8,6 +8,8 @@ where only PyTorch is installed:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -15,6 +17,7 @@ import torch
 from repro_torch import pipeline as tpipe
 from repro_torch.configs.paper_cnn import build_cnn_pipeline
 from repro_torch.core import binarize, bnn, cam, convnet, ensemble
+from repro_torch.core.device_model import NOISELESS, SILICON
 from repro_torch.kernels import binary_gemm, cam_search, fused_conv, fused_mlp
 from repro_torch.serve.picbnn import BatchingPolicy, PicBnnServer
 from repro_torch.spec import InferenceSpec
@@ -621,6 +624,114 @@ def test_served_cnn_on_card_equals_direct(dev):
     with server:
         singles = [server.submit("cnn", x[i]) for i in range(30)]
         burst = server.submit_many("cnn", x[30:])
+        np.testing.assert_array_equal(
+            np.stack([h.result(timeout=60).votes for h in singles]),
+            direct[:30])
+        np.testing.assert_array_equal(burst.votes_all(timeout=60),
+                                      direct[30:])
+
+
+# ---------------------------------------------------------------------------
+# silicon mode on the card: kernels 3 and 4 in their sampled form, fed by
+# the port's sampler
+# ---------------------------------------------------------------------------
+SILICON_MODELS = {"mnist-mlp": (784, 128, 10, 64), "hg-mlp": (4096, 128, 20, 64),
+                  "mnist-28": None, "unaligned-12": None}
+
+
+def _silicon_pair(name):
+    """(card pipeline, CPU pipeline, input batch maker) under SILICON."""
+    if SILICON_MODELS[name] is None:
+        cfg, folded, card = _cnn(name, None, seed=3, min_bucket=8,
+                                 noise=SILICON)
+        cpu = build_cnn_pipeline(cfg, folded, device="cpu", min_bucket=8,
+                                 noise=SILICON)
+        return card, cpu, lambda rng, b: rng.random((b, cfg.n_in)).astype(
+            np.float32)
+    *sizes, bias = SILICON_MODELS[name]
+    folded = _folded(sizes, 4, bias)
+    cfg = ensemble.EnsembleConfig(bias_cells=bias)
+    card = tpipe.compile_pipeline(folded, cfg, min_bucket=8, noise=SILICON)
+    cpu = tpipe.compile_pipeline(folded, cfg, device="cpu", min_bucket=8,
+                                 noise=SILICON)
+    return card, cpu, lambda rng, b: rng.choice(
+        [-1.0, 1.0], (b, sizes[0])).astype(np.float32)
+
+
+@pytest.mark.parametrize("name", sorted(SILICON_MODELS))
+@pytest.mark.parametrize("b", [1, 17, 4097])
+def test_silicon_batch_votes_equal_replayed_samples(dev, name, b):
+    """noise="batch" votes launch kernel 3 / 4 with the sampler's [B, C, P]
+    operand; the same draw, replayed from the generator state and copied
+    to the CPU, gives the same votes against the CPU pipeline's
+    distances."""
+    card, cpu, make = _silicon_pair(name)
+    x = make(np.random.default_rng(b), b)
+    gen = torch.Generator(dev).manual_seed(11)
+    kernel = (fused_conv.fused_conv_votes if card.conv is not None
+              else fused_mlp.fused_mlp_votes)
+    for spec in (InferenceSpec(noise="batch"),
+                 InferenceSpec(noise="batch", reduction="argmax")):
+        state = gen.get_state()
+        before = kernel.launches
+        got = card.run(x, spec, key=gen).cpu()
+        assert kernel.launches == before + 1
+        replay = torch.Generator(dev)
+        replay.set_state(state)
+        bp = tpipe.next_bucket(b, 8)
+        s = card.physics.sample(replay, (bp,), card.n_classes).cpu()
+        xp, _ = cpu._bucketed(cpu._pack_input(torch.from_numpy(x)))
+        votes = (cpu._head_distances(xp).float() <= s).sum(
+            0, dtype=torch.int32)[:b]
+        want = votes if spec.reduction == "none" else \
+            torch.argmax(votes, dim=-1).to(torch.int32)
+        assert torch.equal(got, want), spec.describe()
+
+
+@pytest.mark.parametrize("name", ["mnist-mlp", "mnist-28"])
+def test_silicon_hd_once_specs_on_card(dev, name):
+    """Per-request (kernel 1 route): the card's votes equal its own compare
+    of its keyed samples, agree with the CPU on nearly every vote, and
+    NOISELESS pipelines give every noisy spec the noiseless votes."""
+    card, cpu, make = _silicon_pair(name)
+    x = make(np.random.default_rng(0), 300)
+    keys = np.random.default_rng(1).integers(0, 2 ** 32, (300, 2),
+                                             dtype=np.uint64).astype(np.uint32)
+    spec = InferenceSpec(noise="per_request", mc_samples=4)
+    before = binary_gemm.binary_gemm_hd.launches
+    got = card.run(x, spec, keys=keys)
+    assert binary_gemm.binary_gemm_hd.launches > before
+    xp, _ = card._bucketed(card._pack_input(torch.from_numpy(x).to(dev)))
+    kw = card._each_keys(keys, 300, xp.shape[0])
+    t = card.physics.sample_keyed(kw, card.n_classes, 4)
+    want = (card._head_distances(xp).float() <= t).sum(0, dtype=torch.int32)
+    assert torch.equal(got, want[:, :300])
+    agree = (got.cpu() == cpu.run(x, spec, keys=keys)).float().mean()
+    assert agree > 0.999
+    nl = dataclasses.replace(card, physics=card.physics.__class__.for_head(
+        card.head, NOISELESS), _programs={})
+    base = nl.run(x, InferenceSpec())
+    gen = torch.Generator(dev).manual_seed(0)
+    for s in (InferenceSpec(noise="batch"),
+              InferenceSpec(noise="per_request"),
+              InferenceSpec(noise="batch", cumulative=True)):
+        out = nl.run(x, s, key=gen if s.needs_key else None,
+                     keys=keys if s.needs_keys else None)
+        assert torch.equal(out[-1] if s.cumulative else out, base)
+
+
+def test_served_silicon_on_card_equals_direct(dev):
+    card, _, make = _silicon_pair("mnist-mlp")
+    x = make(np.random.default_rng(2), 70)
+    keys = np.arange(140, dtype=np.uint32).reshape(70, 2)
+    server = PicBnnServer(BatchingPolicy(max_batch=32, max_wait_us=500))
+    server.register("si", card, mc_samples=3)
+    server.warmup()
+    spec = InferenceSpec(noise="per_request", mc_samples=3, reduction="sum")
+    direct = card.run(x, spec, keys=keys).cpu().numpy()
+    with server:
+        singles = [server.submit("si", x[i], key=keys[i]) for i in range(30)]
+        burst = server.submit_many("si", x[30:], keys=keys[30:])
         np.testing.assert_array_equal(
             np.stack([h.result(timeout=60).votes for h in singles]),
             direct[:30])

@@ -1,5 +1,6 @@
 """The port's serving engine (`repro_torch.serve`): served results equal a
-direct `run`, batches never mix models, the micro-batcher makes the same
+direct `run` (noiseless, and silicon with per-request keys under any
+coalescing), batches never mix models, the micro-batcher makes the same
 decisions as the reference's, and what waits for later slices raises."""
 
 import numpy as np
@@ -10,6 +11,7 @@ from _torch_port import BANK_BIAS, BANK_NETS, pm1, random_folded
 from repro.serve import scheduler as jsched
 from repro_torch import pipeline as tpipe
 from repro_torch.core import ensemble as tens
+from repro_torch.core.device_model import NOISELESS, SILICON
 from repro_torch.serve import scheduler as tsched
 from repro_torch.serve.picbnn import BatchingPolicy, PicBnnServer, QueueFullError
 from repro_torch.spec import InferenceSpec
@@ -101,9 +103,12 @@ def test_submit_validation_and_unported_options():
     for kw in (dict(layer_sizes=sizes), dict(silicon_cost=object())):
         with pytest.raises(NotImplementedError):
             server.register("m3", pipe, **kw)
-    for model in ("some/dir", object()):
-        with pytest.raises(NotImplementedError, match="deployment"):
-            server.register("m4", model)
+    # Deployments and saved directories are ported: a directory without
+    # a deployment.json and an object of another type are rejected
+    with pytest.raises(FileNotFoundError, match="deployment"):
+        server.register("m4", "some/dir")
+    with pytest.raises(TypeError, match="Deployment"):
+        server.register("m4", object())
     with pytest.raises(NotImplementedError, match="spmd"):
         PicBnnServer(devices=["cpu"], fanout="spmd")
     with pytest.raises(ValueError, match="fanout"):
@@ -146,3 +151,68 @@ def test_micro_batcher_matches_reference():
     s = tsched.latency_summary([1.0, 2.0, 3.0, 4.0])
     assert s == tsched.LatencySummary(**vars(jsched.latency_summary(
         [1.0, 2.0, 3.0, 4.0])))
+
+
+# ---------------------------------------------------------------------------
+# silicon models: per-request keys, served == direct whatever the batching
+# ---------------------------------------------------------------------------
+def _keys(n, seed):
+    return np.random.default_rng(seed).integers(
+        0, 2 ** 32, (n, 2), dtype=np.uint64).astype(np.uint32)
+
+
+@pytest.mark.parametrize("mc", [0, 3])
+def test_served_silicon_equals_direct_any_batching(mc):
+    """Two coalescing policies, singles and a burst split across
+    micro-batches: served votes equal a direct per-request `run` with the
+    same keys (tests/test_serve_picbnn.py:333,352)."""
+    sizes, bias = BANK_NETS["2048x64"], BANK_BIAS["2048x64"]
+    _, tf = random_folded(sizes, 7, bias)
+    pipe = tpipe.compile_pipeline(tf, tens.EnsembleConfig(bias_cells=bias),
+                                  device="cpu", min_bucket=8, max_bucket=32,
+                                  noise=SILICON)
+    x = pm1(np.random.default_rng(4), (29, sizes[0]))
+    keys = _keys(29, 11)
+    spec = (InferenceSpec(noise="per_request", mc_samples=mc,
+                          reduction="sum") if mc
+            else InferenceSpec(noise="per_request"))
+    want = pipe.run(x, spec, keys=keys).numpy()
+    for pol in (BatchingPolicy(max_batch=4, max_wait_us=100.0),
+                BatchingPolicy(max_batch=32, max_wait_us=5000.0)):
+        srv = PicBnnServer(pol, devices=["cpu"])
+        srv.register("si", pipe, mc_samples=mc)
+        assert srv._models["si"].spec == spec
+        with srv:
+            hs = [srv.submit("si", x[i], key=keys[i]) for i in range(12)]
+            burst = srv.submit_many("si", x[12:], keys=keys[12:])
+            got = np.concatenate([np.stack([h.result(timeout=60).votes
+                                            for h in hs]),
+                                  burst.votes_all(timeout=60)])
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(burst.wait_all(timeout=60),
+                                      want[12:].argmax(-1))
+
+
+def test_silicon_submit_validation():
+    sizes, bias = BANK_NETS["2048x64"], BANK_BIAS["2048x64"]
+    _, tf = random_folded(sizes, 7, bias)
+    cfg = tens.EnsembleConfig(bias_cells=bias)
+    si = tpipe.compile_pipeline(tf, cfg, device="cpu", noise=SILICON)
+    nl = tpipe.compile_pipeline(tf, cfg, device="cpu", noise=NOISELESS)
+    server = PicBnnServer(devices=["cpu"])
+    server.register("si", si)
+    server.register("nl", nl)  # noiseless physics: served as noiseless
+    assert server._models["nl"].spec == InferenceSpec()
+    with pytest.raises(ValueError, match="mc_samples"):
+        server.register("nl2", nl, mc_samples=2)
+    x = np.ones(sizes[0])
+    with pytest.raises(ValueError, match="PRNG key"):
+        server.submit("si", x)
+    with pytest.raises(ValueError, match="keys must be"):
+        server.submit("si", x, key=np.zeros(3, np.uint32))
+    with pytest.raises(ValueError, match="keys must be"):
+        server.submit_many("si", np.ones((2, sizes[0])),
+                           keys=np.zeros((3, 2), np.uint32))
+    with pytest.raises(ValueError, match="noiseless"):
+        server.submit("nl", x, key=np.zeros(2, np.uint32))
+    server.close()
