@@ -65,9 +65,32 @@ exit 0):
    served equals direct.  Then the sampled-form kernels and the sampler
    timed at B = 4096 and `run()` per silicon spec, in a `{"silicon": ...}`
    line.
-6. A `{"kernels": [...]}` line (launches on the kernel's path and on the
-   silicon path, error, times, sampled-form times, bound), then, as the
-   last line, `{"ok": true, "device": ...}`.
+6. Training, with every launch counter set to 0 just before its path:
+   synthetic data (`data.synthetic`, 8,000 train / 1,000 test images a
+   task); the MNIST 784-128-10 and HG 4096-128-20 MLPs trained on the
+   card for 10 epochs and the MNIST and HG CNNs for 3 (`train_mlp`,
+   `train_cnn`: batch 128, lr 2e-3), each saved every epoch with
+   `AsyncCheckpointer` and the last save restored and held equal to the
+   live params; ms per step and steps/s; software top-1
+   (`eval_accuracy`); then `deploy_mlp`/`deploy_cnn` of the trained
+   params with no device argument, `run(VOTES)`/`run(PREDICT)` on the
+   test set through kernels 3 and 4, and a server with the four trained
+   Deployments (Table-II rates: derived for the MLPs, `silicon_cost=`
+   for the CNNs) answering 300 requests each.  Kernels 3 and 4 must have
+   launched.  Checks: one gradient step of each model at full width,
+   card against CPU within GRAD_TOL (cuDNN TF32 off for it); trained
+   votes on the card equal to the CPU pipeline's, PREDICT to their
+   argmax; end-to-end-binary top-1 >= software top-1 - 0.05; served ==
+   direct; the MNIST MLP's 784-bit layer through `mapping.layer_forward`
+   (four 256-bit tiles, exact and hierarchical) card == CPU, with both
+   accuracies through `ensemble.predict`; `ops.binary_gemm_mxu`
+   (`torch._int_mm`) == its plain version at M in {1, 15, 17, 4096} and
+   K outside 8Z; Table II from `model_inference_cost` /
+   `cnn_inference_cost`, labelled as the 65 nm macro's model, the MNIST
+   MLP's inside the paper's band.  A `{"train": ...}` line.
+7. A `{"kernels": [...]}` line (launches on the kernel's path, on the
+   silicon path and on the train path, error, times, sampled-form times,
+   bound), then, as the last line, `{"ok": true, "device": ...}`.
 
 Without CUDA, or without the rest of the repository beside it, the script
 exits non-zero before printing any result.  It imports nothing of JAX.
@@ -762,6 +785,293 @@ def silicon_phase(dev, b_main: int, batches, card, smi: str, models: dict,
                 profile={f"hg/B={b_main}/per_request": split}, card=smi)
 
 
+# card vs CPU on the same params and batch: float32 sums in another order
+# (cuDNN's TF32 off for the comparison; the ±1 forward products are exact)
+GRAD_TOL = 1e-5
+# phase 6's synthetic data (train, test) and epochs: the quickstart's
+# MLP recipe, a few epochs for the CNNs
+TRAIN_DATA = (8000, 1000)
+TRAIN_EPOCHS = {"mlp": 10, "cnn": 3}
+TRAIN_LR = 2e-3
+TRAIN_BATCH = 128
+
+
+def train_phase(dev, smi: str, counted, quick: bool) -> dict:
+    """Phase 6: train the paper's MLPs and CNNs on `dev` from synthetic
+    data, deploy them through kernels 3 and 4, map the MNIST MLP onto
+    the CAM banks, check the int8 product, print Table II and serve the
+    trained models with their silicon-equivalent rates.  `quick` cuts
+    the data and epochs for a CPU rehearsal."""
+    import tempfile
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs.paper_cnn import HG_CNN, MNIST_CNN, deploy_cnn
+    from repro_torch.configs.paper_mlp import (HG_MLP, MNIST_MLP,
+                                               PAPER_ENSEMBLE, deploy_mlp)
+    from repro_torch.core import bnn, convnet, ensemble, mapping
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops
+    from repro_torch.serve.picbnn import BatchingPolicy, PicBnnServer
+    from repro_torch.spec import PREDICT, VOTES
+
+    on_card = dev.type == "cuda"
+    n_train, n_test = (1024, 320) if quick else TRAIN_DATA
+    t_data = t_phase = time.perf_counter()
+    data = {}
+    for name, spec in (("mnist", synthetic.MNIST_LIKE),
+                       ("hg", synthetic.HG_LIKE)):
+        tx, ty, vx, vy = synthetic.make_dataset(spec, n_train, n_test,
+                                                seed=SEED)
+        data[name] = dict(tx=tx, ty=ty, vx=vx, vy=vy,
+                          txb=synthetic.binarize_images(tx),
+                          vxb=synthetic.binarize_images(vx))
+    print(f"train: synthetic data {n_train} + {n_test} a task in "
+          f"{time.perf_counter() - t_data:.1f} s")
+    # (id, data, config, kind): the MLPs take ±1 images, the CNNs pixels
+    models = [("mnist_mlp", "mnist", MNIST_MLP, "mlp"),
+              ("hg_mlp", "hg", HG_MLP, "mlp"),
+              ("mnist_cnn", "mnist", MNIST_CNN, "cnn"),
+              ("hg_cnn", "hg", HG_CNN, "cnn")]
+
+    def inputs(mid, kind, split):
+        d = data[mid.split("_")[0]]
+        return d[f"{split}xb"] if kind == "mlp" else d[f"{split}x"]
+
+    # ---- one gradient step on the card against the CPU (full widths)
+    grad = {}
+    for mid, _, cfg, kind in models:
+        loss = bnn.loss_fn if kind == "mlp" else convnet.cnn_loss
+        init = bnn.init_params if kind == "mlp" else convnet.init_cnn_params
+        params = init(torch.Generator().manual_seed(SEED), cfg)
+        x = inputs(mid, kind, "t")[:TRAIN_BATCH]
+        y = data[mid.split("_")[0]]["ty"][:TRAIN_BATCH]
+        out = []
+        for d in (dev, torch.device("cpu")):
+            p = {g: [{k: v.to(d).requires_grad_(k in bnn.TRAINED)
+                      for k, v in layer.items()} for layer in ls]
+                 for g, ls in params.items()}
+            leaves = [layer[k] for ls in p.values() for layer in ls
+                      for k in bnn.TRAINED]
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                value, new = loss(p, x, y, cfg)
+                grads = torch.autograd.grad(value, leaves)
+            out.append([value.detach().reshape(1)] + list(grads)
+                       + [layer[k] for ls in new.values() for layer in ls
+                          for k in ("mean", "var")])
+        err = 0.0
+        for a, b in zip(*out):
+            a, b = a.detach().cpu(), b.detach().cpu()
+            e = (a - b).abs()
+            require(bool((e <= GRAD_TOL + 1e-5 * b.abs()).all()),
+                    f"{mid}: gradient step card != CPU (max {e.max()})")
+            err = max(err, float(e.max()))
+        grad[mid] = dict(max_abs_err=err, tol=f"{GRAD_TOL} + 1e-5*|cpu|",
+                         leaves=len(out[0]))
+        print(f"  grad {mid:9s}: card vs CPU max |err| {err:.3g} over "
+              f"{len(out[0])} tensors (tol {GRAD_TOL} + 1e-5*|cpu|)")
+
+    # ---- the path: train, checkpoint, deploy, run, serve
+    for fn in counted:
+        fn.launches = 0
+    results, deps = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt") as root:
+        for mid, dname, cfg, kind in models:
+            d = data[dname]
+            epochs = 1 if quick else TRAIN_EPOCHS[kind]
+            ck = ckpt.AsyncCheckpointer(Path(root) / mid, keep_last=2)
+            train = bnn.train_mlp if kind == "mlp" else convnet.train_cnn
+            if on_card:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params = train(torch.Generator().manual_seed(SEED), cfg,
+                           inputs(mid, kind, "t"), d["ty"], epochs=epochs,
+                           batch=TRAIN_BATCH, lr=TRAIN_LR,
+                           on_epoch=lambda p, e: ck.save_async(e, p),
+                           **({} if on_card else {"device": dev}))
+            if on_card:
+                torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            steps = epochs * max(n_train // TRAIN_BATCH, 1)
+            ck.wait()
+            back, step = ckpt.restore(Path(root) / mid, None, params,
+                                      device=dev)
+            require(step == epochs - 1 and all(
+                torch.equal(a, b) for g in params
+                for la, lb in zip(params[g], back[g])
+                for a, b in ((la[k], lb[k]) for k in la)),
+                f"{mid}: restored checkpoint != the live params")
+            require(params[next(iter(params))][0]["w"].device == dev,
+                    f"{mid}: trained params not on {dev}")
+            acc = (bnn.eval_accuracy if kind == "mlp"
+                   else convnet.eval_cnn_accuracy)
+            sw = acc(params, cfg, inputs(mid, kind, "v"), d["vy"])["top1"]
+            # no device argument: the Deployment compiles on the card
+            dep = (deploy_mlp if kind == "mlp" else deploy_cnn)(
+                cfg, params, **({} if on_card else {"device": dev}))
+            deps[mid] = dep
+            x = inputs(mid, kind, "v")
+            votes = dep.run(x, VOTES)
+            pred = dep.run(x, PREDICT)
+            require(votes.device == dev and pred.device == dev,
+                    f"{mid}: deployed run() left {dev}")
+            e2e = float((pred.cpu().numpy() == d["vy"]).mean())
+            results[mid] = dict(
+                params=params, x=x, votes=votes, pred=pred, cfg=cfg,
+                kind=kind, row=dict(
+                    epochs=epochs, steps=steps, train_s=train_s,
+                    ms_per_step=train_s * 1e3 / steps,
+                    steps_per_s=steps / train_s, sw_top1=sw, e2e_top1=e2e,
+                    checkpoint="restored == live", card=smi))
+            print(f"  train {mid:9s}: {steps} steps in {train_s:.2f} s -> "
+                  f"{train_s * 1e3 / steps:.3f} ms/step, "
+                  f"{steps / train_s:.1f} steps/s; top-1 software {sw:.4f}, "
+                  f"end-to-end binary {e2e:.4f} [{smi}]")
+    policy = BatchingPolicy(max_batch=256, max_wait_us=500)
+    server = PicBnnServer(policy, devices=None if on_card else [dev])
+    for mid, dep in deps.items():
+        kw = ({} if results[mid]["kind"] == "mlp" else  # MLPs: derived
+              {"silicon_cost": convnet.cnn_inference_cost(
+                  results[mid]["cfg"])})
+        server.register(mid, dep, **kw)
+    server.warmup()
+    n_req = 300
+    with server:
+        singles = {mid: [server.submit(mid, r["x"][i]) for i in range(100)]
+                   for mid, r in results.items()}
+        bursts = {mid: server.submit_many(mid, r["x"][100:n_req])
+                  for mid, r in results.items()}
+        served = {mid: np.concatenate(
+            [np.stack([h.result(timeout=60).votes for h in singles[mid]]),
+             bursts[mid].votes_all(timeout=60)]) for mid in results}
+    if on_card:
+        torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counted}
+    print(f"train path: launches {launches}")
+    for name in ("fused_mlp_votes", "fused_conv_votes"):
+        require(launches[name] > 0 or not on_card,
+                f"{name} was not launched on the train path")
+    stats = server.stats()
+    print(stats.summary())
+
+    # where a training step goes: one torch.profiler pass over epochs of
+    # ten steps (device kernels against the rest of the call)
+    steps_split = {}
+    for mid, dname, cfg, kind in models:
+        train = bnn.train_mlp if kind == "mlp" else convnet.train_cnn
+        n10 = 10 * TRAIN_BATCH
+        x10 = inputs(mid, kind, "t")[:n10]
+        y10 = data[dname]["ty"][:n10]
+        split = profile_split(lambda: train(
+            torch.Generator().manual_seed(SEED), cfg, x10, y10, epochs=1,
+            batch=TRAIN_BATCH, lr=TRAIN_LR,
+            **({} if on_card else {"device": dev})), 3)
+        steps_split[mid] = dict(
+            step_ms=split["call_ms"] / 10,
+            device_kernel_ms_per_step=split["device_kernel_ms"] / 10,
+            device_share=split["device_share"],
+            kernel_names=len(split["kernels"]))
+        print(f"  profile train {mid:9s}: {split['call_ms'] / 10:.3f} ms a "
+              f"step (ten-step epochs, init included), device kernels "
+              f"{split['device_kernel_ms'] / 10:.4f} ms in "
+              f"{len(split['kernels'])} kernel names")
+
+    # ---- what came out: card == CPU, the accuracy band, served == direct
+    for mid, r in results.items():
+        cpu = deps[mid].pipeline("cpu")
+        want = cpu.run(r["x"], VOTES)
+        require(torch.equal(r["votes"].cpu(), want),
+                f"{mid}: trained votes on the card != CPU pipeline")
+        require(torch.equal(r["pred"].cpu().long(), want.argmax(-1)),
+                f"{mid}: PREDICT on the card != argmax of the CPU votes")
+        row = r["row"]
+        require(row["e2e_top1"] >= row["sw_top1"] - 0.05,
+                f"{mid}: end-to-end binary top-1 {row['e2e_top1']:.4f} < "
+                f"software {row['sw_top1']:.4f} - 0.05")
+        direct = r["votes"][:n_req].cpu().numpy()
+        require(np.array_equal(served[mid], direct),
+                f"{mid}: served votes != direct run")
+        ms = stats.per_model[mid]
+        require(ms.silicon_inf_per_s is not None and ms.vs_silicon,
+                f"{mid}: no silicon-equivalent rate in the server's stats")
+        row.update(votes_equal_cpu=True, served_inf_per_s=ms.inf_per_s,
+                   silicon_inf_per_s=ms.silicon_inf_per_s,
+                   vs_silicon=ms.vs_silicon)
+        print(f"  {mid:9s}: card == CPU votes on {len(r['x'])} test images, "
+              f"served {ms.inf_per_s:,.0f} inf/s = x{ms.vs_silicon:.3f} of "
+              f"the macro's modelled {ms.silicon_inf_per_s:,.0f} inf/s")
+
+    # ---- the MNIST MLP's hidden layer through the CAM tiles
+    r = results["mnist_mlp"]
+    folded = deps["mnist_mlp"].folded
+    mapped = mapping.map_layer(folded[0], MNIST_MLP.bias_cells)
+    require(len(mapped.col_tiles) == 4, "784 bits should take four tiles")
+    head = ensemble.build_head(folded[-1], PAPER_ENSEMBLE).to(dev)
+    xm = torch.from_numpy(r["x"])
+    mapping_row = {}
+    for mode in ("exact", "hierarchical"):
+        h = mapping.layer_forward(mapped, xm.to(dev), mode)
+        require(h.device == dev and torch.equal(
+            h.cpu(), mapping.layer_forward(mapped, xm, mode)),
+            f"layer_forward[{mode}] on the card != CPU")
+        pred = ensemble.predict(head, h, PAPER_ENSEMBLE)
+        mapping_row[f"{mode}_top1"] = float(
+            (pred.cpu().numpy() == data["mnist"]["vy"]).mean())
+    print(f"  mapping mnist_mlp 784 bits -> 4 tiles of 256: card == CPU; "
+          f"top-1 exact {mapping_row['exact_top1']:.4f}, hierarchical "
+          f"{mapping_row['hierarchical_top1']:.4f}")
+
+    # ---- binary_gemm_mxu (torch._int_mm) against its plain version
+    rng = np.random.default_rng(SEED + 11)
+    mxu_err = 0
+    for m in (1, 15, 17, 4096):
+        for k, n in ((785, 128), (4095, 20), (100, 3)):
+            xw = torch.from_numpy(rng.choice([-1.0, 1.0], (m, k)).astype(
+                np.float32))
+            ww = torch.from_numpy(rng.choice([-1.0, 1.0], (k, n)).astype(
+                np.float32))
+            got = ops.binary_gemm_mxu(xw.to(dev), ww.to(dev)).cpu()
+            want = ops.binary_gemm_mxu_plain(xw, ww)
+            require(torch.equal(got, want),
+                    f"binary_gemm_mxu M={m} K={k} N={n} != plain")
+            mxu_err = max(mxu_err, int((got - want).abs().max()))
+    print("  binary_gemm_mxu == plain at M in (1, 15, 17, 4096), K in "
+          "(785, 4095, 100)")
+
+    # ---- Table II: the 65 nm macro's modelled figures, not the card's
+    table2 = {}
+    for mid, _, cfg, kind in models:
+        if kind == "mlp":
+            sizes = cfg.layer_sizes
+            cost = mapping.model_inference_cost(
+                [mapping.plan_layer(b, a, cfg.bias_cells)
+                 for a, b in zip(sizes[:-1], sizes[1:])],
+                len(PAPER_ENSEMBLE.thresholds))
+        else:
+            cost = convnet.cnn_inference_cost(cfg)
+        table2[mid] = dict(
+            inf_per_s=cost.inferences_per_s, nj_per_inf=cost.energy_j * 1e9,
+            inf_per_s_per_w=1.0 / cost.energy_j, cycles=cost.cycles,
+            binary_ops=cost.binary_ops)
+        print(f"  Table II model (65 nm macro, 25 MHz, 0.8 mW; not the "
+              f"card) {mid:9s}: {cost.inferences_per_s:,.0f} inf/s, "
+              f"{cost.energy_j * 1e9:.3f} nJ/inf, "
+              f"{1.0 / cost.energy_j:,.0f} inf/s/W, {cost.cycles} cycles")
+    mn = table2["mnist_mlp"]
+    # tests/test_mapping.py's band around the paper's 560 K inf/s and
+    # 703 M inf/s/W (tests/test_torch_mapping.py holds it equal to JAX's)
+    require(500e3 <= mn["inf_per_s"] <= 700e3
+            and 300e6 <= mn["inf_per_s_per_w"] <= 1.5e9,
+            f"MNIST MLP Table II out of the paper's band: {mn}")
+    phase_s = time.perf_counter() - t_phase
+    print(f"train phase: {phase_s:.1f} s")
+    return dict(
+        models={mid: r["row"] for mid, r in results.items()},
+        profile=steps_split, phase_s=phase_s,
+        grad_check=grad, mapping=mapping_row,
+        binary_gemm_mxu=dict(max_abs_err=mxu_err, route="torch._int_mm"),
+        table2_macro_model=table2, launches=launches, card=smi)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check needs the card",
@@ -1115,6 +1425,10 @@ def run(dev: torch.device, b_main: int, batches, card: Card,
                             report, counted)
     print(json.dumps({"silicon": silicon}))
 
+    # ------------------------------------------------- training (phase 6)
+    train = train_phase(dev, smi, counted, quick=not on_card)
+    print(json.dumps({"train": train}))
+
     # ------------------------------------------------------------ summary
     line = []
     for name, r in report.items():
@@ -1128,6 +1442,7 @@ def run(dev: torch.device, b_main: int, batches, card: Card,
             launches=(op_launches if op_path else launches)[name],
             main_path_launches=launches[name],
             silicon_launches=silicon["launches"][name],
+            train_launches=train["launches"][name],
             sampled_ms=r.get("sampled", {}).get(
                 "hg_cnn" if "conv" in name else "hg", {}).get("ms"),
             sampled=r.get("sampled"),

@@ -1,5 +1,5 @@
-"""Atomic checkpoint directories of numpy-leaf trees (port of
-`repro/checkpoint/ckpt.py`, its synchronous save and restore).
+"""Atomic, asynchronous checkpoint directories of array trees (port of
+`repro/checkpoint/ckpt.py`).
 
 Layout (one directory per step), the reference's own:
 
@@ -8,7 +8,8 @@ Layout (one directory per step), the reference's own:
                              file, shape and dtype
         <leaf-path>.npy    — one file per leaf
 
-A tree is nested dicts and lists (tuples) of arrays.  A leaf's path joins
+A tree is nested dicts and lists (tuples) of arrays: numpy arrays, or
+torch tensors on any device, saved from a host copy.  A leaf's path joins
 its dict keys and list indices with "/" (dict keys in sorted order, as
 `jax.tree_util` flattens them); its file name replaces each "/" with
 "__".  A save writes into `.step_XXXXXXXX.tmp-<nonce>/`, syncs it, then
@@ -16,8 +17,10 @@ renames it into place, so a crash mid-save never leaves a partial step,
 and keeps the last `keep_last` steps.  A directory written by either
 package loads in the other.
 
-The reference's asynchronous checkpointer and its restore onto device
-shardings have no use on the port's path yet.
+`AsyncCheckpointer.save_async` copies the tree to host memory when it is
+called and writes it on a thread, so training goes on while the files
+are written.  `restore` places the leaves on `device=` where the
+reference takes device shardings.
 """
 
 from __future__ import annotations
@@ -25,12 +28,14 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import threading
 import time
 import uuid
 from pathlib import Path
 from typing import Any, Optional
 
 import numpy as np
+import torch
 
 
 def _leaf_paths(tree, prefix: tuple = ()) -> list[tuple[str, Any]]:
@@ -45,6 +50,15 @@ def _leaf_paths(tree, prefix: tuple = ()) -> list[tuple[str, Any]]:
             out += _leaf_paths(v, prefix + (str(i),))
         return out
     return [("/".join(prefix), tree)]
+
+
+def _host_copy(leaf) -> np.ndarray:
+    """A leaf as a numpy array that nothing else writes: a tensor is
+    copied off its device (and a CPU tensor copied too, since `.numpy()`
+    shares its memory with the next in-place update)."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().cpu().numpy().copy()
+    return np.array(leaf)
 
 
 def _rebuild(tree, values: dict, prefix: tuple = ()):
@@ -67,7 +81,7 @@ def save(root, step: int, tree, *, keep_last: int = 3) -> Path:
     tmp.mkdir(parents=True)
     manifest = {"step": step, "time": time.time(), "leaves": []}
     for name, leaf in _leaf_paths(tree):
-        arr = np.asarray(leaf)
+        arr = _host_copy(leaf)
         fname = name.replace("/", "__") + ".npy"
         np.save(tmp / fname, arr)
         manifest["leaves"].append(
@@ -87,6 +101,47 @@ def save(root, step: int, tree, *, keep_last: int = 3) -> Path:
     return final
 
 
+class AsyncCheckpointer:
+    """Snapshot-on-call, write-on-thread checkpointing.
+
+    `save_async(step, tree)` copies every leaf to host memory before it
+    returns (so later in-place updates of the live tensors cannot reach
+    the files) and writes the step on a daemon thread; one save is in
+    flight at a time.  An error in the writer is raised by the next
+    `wait()` (which `save_async` calls first).
+    """
+
+    def __init__(self, root, keep_last: int = 3):
+        self.root = Path(root)
+        self.keep_last = keep_last
+        self._thread: Optional[threading.Thread] = None
+        self.last_error: Optional[BaseException] = None
+
+    def save_async(self, step: int, tree) -> None:
+        """Snapshot `tree` now; write it as step `step` in the background."""
+        self.wait()
+        values = {name: _host_copy(leaf) for name, leaf in _leaf_paths(tree)}
+        host_tree = _rebuild(tree, values)
+
+        def work():
+            try:
+                save(self.root, step, host_tree, keep_last=self.keep_last)
+            except BaseException as e:  # surfaced on the next wait()
+                self.last_error = e
+
+        self._thread = threading.Thread(target=work, daemon=True)
+        self._thread.start()
+
+    def wait(self) -> None:
+        """Join the in-flight save; raise its error, if it had one."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self.last_error is not None:
+            err, self.last_error = self.last_error, None
+            raise err
+
+
 def _prune(root: Path, keep_last: int) -> None:
     steps = sorted(p for p in root.glob("step_*") if p.is_dir())
     for p in steps[:-keep_last]:
@@ -104,11 +159,13 @@ def latest_step(root) -> Optional[int]:
     return int(steps[-1].split("_")[1])
 
 
-def restore(root, step: Optional[int], template):
+def restore(root, step: Optional[int], target_tree, device=None):
     """Load step `step` (None: the latest) into the structure of
-    `template`, a tree whose leaves are arrays or anything with a
+    `target_tree`, a tree whose leaves are arrays or anything with a
     `.shape` (checked against the file; leaves without one are not).
-    Returns (tree of numpy arrays, step)."""
+
+    Returns (tree, step): numpy leaves, or with `device=` torch tensors
+    placed there (the reference's `shardings=` places jax arrays)."""
     root = Path(root)
     if step is None:
         step = latest_step(root)
@@ -118,7 +175,7 @@ def restore(root, step: Optional[int], template):
     manifest = json.loads((d / "manifest.json").read_text())
     by_path = {e["path"]: e for e in manifest["leaves"]}
     values = {}
-    for name, leaf in _leaf_paths(template):
+    for name, leaf in _leaf_paths(target_tree):
         entry = by_path.get(name)
         if entry is None:
             raise KeyError(f"checkpoint missing leaf {name!r}")
@@ -128,5 +185,6 @@ def restore(root, step: Optional[int], template):
             raise ValueError(
                 f"shape mismatch for {name}: ckpt {arr.shape} vs {expect}"
             )
-        values[name] = arr
-    return _rebuild(template, values), manifest["step"]
+        values[name] = (arr if device is None
+                        else torch.from_numpy(arr).to(device))
+    return _rebuild(target_tree, values), manifest["step"]

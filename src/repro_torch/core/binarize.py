@@ -1,6 +1,6 @@
-"""Bit packing, Hamming-distance primitives and the binary input layer
-(port of `repro/core/binarize.py`, inference half: `sign_ste` comes with
-the training slice).
+"""Sign with the straight-through estimator, bit packing,
+Hamming-distance primitives and the binary input layer (port of
+`repro/core/binarize.py`).
 
 Conventions (paper Sec. II-B):
   logical bit b in {0, 1}  <->  value v = 2b - 1 in {-1, +1}
@@ -26,6 +26,27 @@ WORD = 32
 
 _TWO32 = 1 << 32
 _SHIFTS = torch.arange(WORD, dtype=torch.int64)
+
+
+class _SignSTE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.where(x >= 0, 1.0, -1.0).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g * (x.abs() <= 1.0).to(g.dtype)
+
+
+def sign_ste(x: torch.Tensor) -> torch.Tensor:
+    """sign(x) in {-1, +1} with the clipped straight-through estimator.
+
+    Forward: sign(x) (0 maps to +1, matching the paper's logic-'1' coding).
+    Backward: dL/dx = dL/dy * 1[|x| <= 1]  (Hinton STE / BinaryConnect).
+    """
+    return _SignSTE.apply(x)
 
 
 def to_bits(values: torch.Tensor) -> torch.Tensor:
@@ -60,6 +81,14 @@ def pack_bits(bits: torch.Tensor) -> torch.Tensor:
     return torch.where(words >= 1 << 31, words - _TWO32, words).to(torch.int32)
 
 
+def pack_bits_reference(bits: torch.Tensor) -> torch.Tensor:
+    """The reference's shift-broadcast-sum pack, kept there as the oracle
+    and baseline of its dot-product fast path.  The port's `pack_bits` is
+    that same algorithm, so this is `pack_bits` under the reference's
+    name."""
+    return pack_bits(bits)
+
+
 def unpack_bits(words: torch.Tensor, n_bits: int) -> torch.Tensor:
     """int32 words -> {0,1} uint8 bits, truncated to n_bits.
 
@@ -89,6 +118,11 @@ def popcount32(words: torch.Tensor) -> torch.Tensor:
 def hamming_packed(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Hamming distance between packed bit vectors (broadcasts leading dims)."""
     return popcount32(torch.bitwise_xor(a, b)).sum(-1, dtype=torch.int32)
+
+
+def hamming_pm1(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamming distance between ±1 vectors: #positions where they differ."""
+    return (a * b < 0).sum(-1, dtype=torch.int32)
 
 
 def dot_from_hd(hd, n_bits):

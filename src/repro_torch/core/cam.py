@@ -83,6 +83,11 @@ class CAMArray:
         bits = torch.as_tensor(bits)
         return cls(rows_packed=binarize.pack_bits(bits), n_bits=bits.shape[-1])
 
+    @classmethod
+    def from_pm1(cls, values) -> "CAMArray":
+        """values: [N, n_bits] in {-1,+1}."""
+        return cls.from_bits(binarize.to_bits(torch.as_tensor(values)))
+
     @property
     def n_rows(self) -> int:
         """Rows stored (classes, for an ensemble head)."""

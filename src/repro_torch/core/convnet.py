@@ -1,4 +1,6 @@
-"""End-to-end-binary CNN, deployment half (port of `repro/core/convnet.py`).
+"""End-to-end-binary CNN: training (sign-STE conv + batch norm), folding
+for the packed-domain conv pipeline, and the Table-II cost of one
+inference on the macro (port of `repro/core/convnet.py`).
 
 The INPUT layer is binary too: raw [0,1] pixels pass through a
 `binarize.InputEncoding` (thermometer by default) into `width` binary
@@ -11,11 +13,15 @@ that `pipeline.compile_pipeline` compiles end to end.
 Spatial semantics: VALID convolutions with integer stride (downsampling
 is stride-2 convs, no pooling).
 
-What waits for later slices: `init_cnn_params`, `cnn_forward`,
-`cnn_loss` and `train_cnn` come with the training slice (`fold_cnn`
-takes the trained parameters as a tree of numpy arrays,
-`convert.params_from_jax`); `cnn_inference_cost` comes with the
-cost-model slice, which brings `core/mapping.py`.
+Layouts are the reference's: activations NHWC, filters HWIO
+[k, k, c_in, c_out], so `fold_cnn` and `convert.params_from_jax` take
+either package's trees.  `cnn_forward` permutes to PyTorch's NCHW/OIHW
+only around `F.conv2d` and flattens channels-last, in (y, x, channel)
+order, which the first FC layer's rows assume.  The forward operands are
+±1, so the products are exact in float32 and in TF32 alike; the
+backward's are not, and cuDNN runs float32 convolutions in TF32 by
+default on the card (`torch.backends.cudnn.allow_tf32`): this module
+sets no global flag, so a caller that compares gradients sets it.
 """
 
 from __future__ import annotations
@@ -24,9 +30,13 @@ import dataclasses
 from typing import Sequence
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 
-from repro_torch.core.binarize import InputEncoding
-from repro_torch.core.bnn import FoldedLayer, Params, fold_bn, parity_adjust_c
+from repro_torch.core import bnn, mapping
+from repro_torch.core.binarize import InputEncoding, sign_ste
+from repro_torch.core.bnn import (FoldedLayer, Params, batch_norm, fold_bn,
+                                  parity_adjust_c, to_host)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,13 +151,14 @@ def fold_cnn(params: Params, cfg: CNNConfig) -> list:
     """Collapse trained BN into integer constants per channel/neuron.
 
     params: {"conv": [{"w", "gamma", "beta", "mean", "var"}, ...],
-    "fc": [...]} of numpy arrays, conv `w` as [k, k, c_in, c_out] and FC
-    `w` as [in, out] latent weights.  Returns [FoldedConvLayer, ...,
-    FoldedLayer, ...]: the conv stack followed by the MLP stage.
+    "fc": [...]} of numpy arrays or tensors on any device, conv `w` as
+    [k, k, c_in, c_out] and FC `w` as [in, out] latent weights.  Returns
+    [FoldedConvLayer, ..., FoldedLayer, ...]: the conv stack followed by
+    the MLP stage.
     """
     folded: list = []
     for layer, spec in zip(params["conv"], cfg.conv):
-        w = np.sign(np.asarray(layer["w"]))
+        w = np.sign(to_host(layer["w"]))
         w = np.where(w == 0, 1.0, w)  # sign(0) -> +1, the '1' coding
         w = np.transpose(w, (3, 0, 1, 2))  # -> rows [c_out, k, k, c_in]
         n_bits = spec.k * spec.k * w.shape[3]
@@ -155,11 +166,133 @@ def fold_cnn(params: Params, cfg: CNNConfig) -> list:
         folded.append(FoldedConvLayer(weights_pm1=w, c=c,
                                       stride=spec.stride))
     for layer in params["fc"]:
-        w = np.sign(np.asarray(layer["w"]))
+        w = np.sign(to_host(layer["w"]))
         w = np.where(w == 0, 1.0, w).T  # [out, in]
         w, c = fold_bn(w, layer, cfg.bn_eps, w.shape[1], cfg.bias_cells)
         folded.append(FoldedLayer(weights_pm1=w, c=c))
     return folded
+
+
+def init_cnn_params(generator: torch.Generator, cfg: CNNConfig,
+                    dtype=torch.float32) -> Params:
+    """Glorot latent conv filters + FC weights, identity batch norm, drawn
+    from `generator` on its device."""
+    params: Params = {"conv": [], "fc": []}
+    c_in = cfg.encoding.width
+    for spec in cfg.conv:
+        w = bnn.glorot(generator, (spec.k, spec.k, c_in, spec.c_out),
+                       spec.k * spec.k * c_in, spec.k * spec.k * spec.c_out,
+                       dtype)
+        params["conv"].append(bnn.bn_layer(w, spec.c_out))
+        c_in = spec.c_out
+    sizes = cfg.fc_sizes
+    for a, b in zip(sizes[:-1], sizes[1:]):
+        params["fc"].append(bnn.bn_layer(bnn.glorot(generator, (a, b), a, b,
+                                                    dtype), b))
+    return params
+
+
+def cnn_forward(params: Params, x01, cfg: CNNConfig, *,
+                train: bool = False):
+    """Forward pass on raw [0,1] pixels [B, side*side] (moved to the
+    params' device).
+
+    The input layer is binary: pixels pass through `cfg.encoding` into ±1
+    channels before the first conv.  Returns (logits, new_params) like
+    `bnn.forward`.
+    """
+    w0 = params["fc"][0]["w"]
+    x = torch.as_tensor(x01).to(w0.device, w0.dtype)
+    b = x.shape[0]
+    h = cfg.encoding.encode_pm1(x.reshape(b, cfg.side, cfg.side))  # NHWC
+    new_conv = []
+    for layer, spec in zip(params["conv"], cfg.conv):
+        wb = sign_ste(layer["w"]).permute(3, 2, 0, 1)  # HWIO -> OIHW
+        y = F.conv2d(h.permute(0, 3, 1, 2), wb, stride=spec.stride)
+        # batch norm per channel over (N, H, W), channels last
+        y, stats = batch_norm(y.permute(0, 2, 3, 1), layer, cfg.bn_eps,
+                              cfg.bn_momentum, train, dims=(0, 1, 2))
+        new_conv.append({**layer, **stats})
+        h = sign_ste(y)  # NHWC
+    h = h.reshape(b, -1)  # NHWC flatten: logical (y, x, channel) order
+    new_fc = []
+    n_fc = len(params["fc"])
+    for i, layer in enumerate(params["fc"]):
+        y = h @ sign_ste(layer["w"])
+        y, stats = batch_norm(y, layer, cfg.bn_eps, cfg.bn_momentum, train,
+                              dims=(0,))
+        new_fc.append({**layer, **stats})
+        if i < n_fc - 1:
+            h = sign_ste(y)
+    return y, {"conv": new_conv, "fc": new_fc}
+
+
+def cnn_loss(params: Params, x01, labels, cfg: CNNConfig):
+    """Cross-entropy on the (training-only) full-precision logits.
+    Returns (loss, params with updated BN running stats)."""
+    logits, new_params = cnn_forward(params, x01, cfg, train=True)
+    labels = torch.as_tensor(labels).to(logits.device, torch.int64)
+    return F.cross_entropy(logits, labels), new_params
+
+
+def train_cnn(generator: torch.Generator, cfg: CNNConfig, train_x,
+              train_y, *, epochs: int = 6, batch: int = 128,
+              lr: float = 1e-3, verbose: bool = False,
+              on_epoch=None, device=None) -> Params:
+    """Train a binary CNN on raw [0,1] pixels [N, side*side] (the binary
+    input encoding runs inside the forward pass).
+
+    Same recipe, batch order and options as `bnn.train_mlp` (verbose
+    reports on 1,024 samples); only the latent weights are clipped, never
+    the BN statistics.  `generator` draws the initial params on its
+    device; they then move to `device` (None: the CUDA card, raising
+    without CUDA).
+    """
+    from repro_torch.pipeline import resolve_device  # deferred: no cycle
+
+    dev = resolve_device(device)
+    return bnn.fit(init_cnn_params(generator, cfg),
+                   lambda p, x, y: cnn_loss(p, x, y, cfg), train_x, train_y,
+                   epochs=epochs, batch=batch, lr=lr, device=dev,
+                   after_epoch=bnn.epoch_hook(
+                       verbose, on_epoch, epochs,
+                       lambda p: eval_cnn_accuracy(p, cfg, train_x[:1024],
+                                                   train_y[:1024])))
+
+
+def eval_cnn_accuracy(params: Params, cfg: CNNConfig, x01, y,
+                      topk=(1,)) -> dict:
+    """Top-k accuracy of the full-precision-logit software path, on the
+    params' device."""
+    with torch.no_grad():
+        logits, _ = cnn_forward(params, np.asarray(x01), cfg)
+    return bnn.topk_accuracy(logits, y, topk)
+
+
+def cnn_inference_cost(cfg: CNNConfig, n_output_passes: int = 33
+                       ) -> mapping.InferenceCost:
+    """Table-II-style silicon cost of one CNN inference on the macro.
+
+    Each conv layer maps its filters onto a CAM tile plan
+    (`mapping.plan_layer` with row width k*k*c_in + bias cells) and is
+    searched once per output position; FC layers query once; the output
+    layer sweeps `n_output_passes` thresholds.  What the server reports
+    as a CNN's silicon-equivalent rate
+    (`PicBnnServer.register(silicon_cost=...)`).
+    """
+    sides = cfg.feature_sides()
+    chans = cfg.feature_channels()
+    plans, queries = [], []
+    for spec, c_in, s_out in zip(cfg.conv, chans[:-1], sides[1:]):
+        plans.append(mapping.plan_layer(
+            spec.c_out, spec.k * spec.k * c_in, cfg.bias_cells))
+        queries.append(s_out * s_out)
+    sizes = cfg.fc_sizes
+    for n_in, n_out in zip(sizes[:-1], sizes[1:]):
+        plans.append(mapping.plan_layer(n_out, n_in, cfg.bias_cells))
+        queries.append(1)
+    return mapping.model_inference_cost(plans, n_output_passes,
+                                        layer_queries=queries)
 
 
 def random_folded_cnn(cfg: CNNConfig, seed: int = 0, cmax: int = 24) -> list:

@@ -27,8 +27,9 @@ the two packages share on disk:
   * `impl`, `interpret`, `chunk`, `bq` — ignored: they choose among the
     reference's JAX implementations (the port has one route per spec,
     and its kernels size their own tiles);
-  * `donate` — `donate=True` raises NotImplementedError at compile, as
-    `compile_pipeline` does; `donate=False` is accepted.
+  * `donate` — passed on to `compile_pipeline`, which accepts it and
+    ignores it, as the reference's backends that cannot reuse the
+    buffer do.
 
 Any other option is rejected when the Deployment is built, so a
 port-saved manifest carries only options the reference accepts.
@@ -268,7 +269,8 @@ def deploy(model, *, config: Union[MLPConfig, CNNConfig, None] = None,
 
     model : folded layers (`bnn.fold` / `convnet.fold_cnn` /
         `convnet.random_folded_cnn` output), or trained parameters (numpy
-        leaves) — then `config` is required and the fold runs here.
+        leaves, or `train_mlp`/`train_cnn`'s tensors on any device) —
+        then `config` is required and the fold runs here.
     config : optional `MLPConfig` | `CNNConfig`: the bias cells of the
         default ensemble config and (CNN) the image side and encoding.
     ens_cfg / noise / params / image_side / image_encoding : as

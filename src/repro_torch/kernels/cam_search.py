@@ -6,8 +6,8 @@ The Hamming distance of every (query, class row) pair is computed once
 and compared against all P thresholds in registers.  Threshold forms, as
 in the reference: an int32 [P] schedule (integer compare), a float32 [P]
 schedule (compared as float32(HD) <= T), or a float32 [B, C, P] block of
-sampled thresholds (`thr_samples`; the sampler itself comes with the
-noise slice).
+sampled thresholds (`thr_samples`, drawn by
+`core.physics.SearchPhysics.sample`).
 
 `cam_vote` launches the CUDA kernel of `csrc/cam_search.cu` for tensors
 on the card and runs `cam_vote_plain` for tensors on the CPU.  It

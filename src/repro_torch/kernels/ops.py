@@ -1,9 +1,10 @@
 """Public wrappers around the kernels (port of `repro/kernels/ops.py`).
 
-Each call launches the hand-written CUDA kernel for tensors on the card
-and runs its plain PyTorch version for tensors on the CPU; there is no
-interpret mode to resolve.  `binary_gemm_mxu` (an int8 matrix product in
-the reference, not a Pallas kernel) waits for the cost-model slice.
+Each kernel call launches the hand-written CUDA kernel for tensors on
+the card and runs its plain PyTorch version for tensors on the CPU;
+there is no interpret mode to resolve.  `binary_gemm_mxu` is an int8
+matrix product in the reference (`dot_general`, not a Pallas kernel), so
+its counterpart is the library's int8 tensor-core product on the card.
 """
 
 from __future__ import annotations
@@ -32,3 +33,46 @@ def cam_vote(q_packed: torch.Tensor, rows_packed: torch.Tensor,
     """Fused Algorithm-1 vote counts ([B,Kw],[C,Kw],[P] -> [B,C] int32)."""
     return _cs.cam_vote(q_packed, rows_packed, thresholds,
                         thr_samples=thr_samples)
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def binary_gemm_mxu_plain(x_pm1: torch.Tensor,
+                          w_pm1: torch.Tensor) -> torch.Tensor:
+    """Plain version: the int32 matrix product ([..., K] x [K, N])."""
+    return torch.matmul(x_pm1.to(torch.int32), w_pm1.to(torch.int32))
+
+
+def binary_gemm_mxu(x_pm1: torch.Tensor, w_pm1: torch.Tensor) -> torch.Tensor:
+    """±1 operands through the int8 tensor cores, int32 accumulation.
+
+    x: [..., K], w: [K, N] in {-1,+1} -> [..., N] int32 (exact for
+    K < 2^31).  CUDA tensors go to `torch._int_mm`, which takes 2-D
+    operands with more than 16 rows and K, N multiples of 8: the operands
+    are zero-padded to that and the result sliced back (a zero adds
+    nothing to a ±1 dot).  CPU tensors take the plain version.
+    """
+    if x_pm1.shape[-1] != w_pm1.shape[0] or w_pm1.ndim != 2:
+        raise ValueError(f"shapes {tuple(x_pm1.shape)} x {tuple(w_pm1.shape)}"
+                         " do not chain as [..., K] x [K, N]")
+    if x_pm1.device != w_pm1.device:
+        raise ValueError("x_pm1 and w_pm1 are on different devices")
+    if x_pm1.device.type == "cpu":
+        return binary_gemm_mxu_plain(x_pm1, w_pm1)
+    if x_pm1.device.type != "cuda":
+        raise ValueError(f"unsupported device {x_pm1.device}")
+    *lead, k = x_pm1.shape
+    n = w_pm1.shape[1]
+    x = x_pm1.reshape(-1, k)
+    m = x.shape[0]
+    kp = _round_up(max(k, 1), 8)
+    xp = torch.zeros((_round_up(max(m, 17), 8), kp), dtype=torch.int8,
+                     device=x.device)
+    xp[:m, :k] = x
+    # the second operand column-major, the layout the int8 GEMM takes
+    wt = torch.zeros((_round_up(max(n, 1), 8), kp), dtype=torch.int8,
+                     device=x.device)
+    wt[:n, :k] = w_pm1.t()
+    return torch._int_mm(xp, wt.t())[:m, :n].reshape(*lead, n)

@@ -63,7 +63,9 @@ bucket (floor `min_bucket`), and results are trimmed back; rows are
 independent, so results do not depend on the padding, and a serving loop
 meets O(log B) distinct shapes (`warmup` covers them).
 
-`donate=` raises NotImplementedError (no counterpart in the port).
+`donate=` is accepted and has no effect: the reference documents that
+donation never changes results and that a backend which cannot reuse the
+buffer ignores it; the port's eager calls have no buffer to hand over.
 """
 
 from __future__ import annotations
@@ -553,10 +555,11 @@ def compile_pipeline(
               (`binarize.InputEncoding`); its width must equal the first
               conv layer's c_in.  Default: thermometer of that width.
 
-    donate= raises NotImplementedError.
+    donate  : accepted for the reference's signature; no effect (the
+              reference's backends that cannot reuse the buffer ignore
+              it too, and results never depend on it).
     """
-    if donate:
-        raise NotImplementedError("donate= has no counterpart in the port yet")
+    del donate
     ens_cfg = ens_cfg or EnsembleConfig()
     if len(folded) < 1:
         raise ValueError("need at least the output layer")

@@ -35,8 +35,11 @@ rows get zero keys.  Results equal a direct `CompiledPipeline.run` on the
 same rows (and keys): bucketing is padding-invariant and every row is
 computed independently.
 
-What waits for later slices, and how it fails: `fanout="spmd"` and the
-Table-II `layer_sizes`/`silicon_cost` stats raise NotImplementedError.
+`stats()` reports each model's served rate beside its Table-II
+silicon-equivalent rate (`layer_sizes=` or `silicon_cost=` at
+registration; `core/mapping.py`'s model of the 65 nm macro, not of the
+card).  What waits for a later slice, and how it fails: `fanout="spmd"`
+raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -51,6 +54,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core import mapping
 from repro_torch.deploy import Deployment
 from repro_torch.pipeline import CompiledPipeline, next_bucket, resolve_device
 from repro_torch.serve.scheduler import (
@@ -248,6 +252,7 @@ class _Model:
     pipes: list  # pipes[i] lives on the server's devices[i]
     silicon: bool  # per-request keyed draws (physics not noiseless)
     spec: InferenceSpec  # the ONE spec every dispatch for this model runs
+    silicon_cost: Optional[mapping.InferenceCost]  # Table-II equivalent
 
     @property
     def pipe(self) -> CompiledPipeline:
@@ -267,6 +272,8 @@ class ModelStats:
     latency: LatencySummary
     queue: LatencySummary
     service: LatencySummary
+    silicon_inf_per_s: Optional[float]  # mapping.model_inference_cost
+    vs_silicon: Optional[float]  # achieved / silicon-equivalent
 
 
 @dataclasses.dataclass(frozen=True)
@@ -298,9 +305,13 @@ class ServerStats:
             f"  service  {self.service}",
         ]
         for ms in self.per_model.values():
-            lines.append(f"  [{ms.model_id}] {ms.n_requests} reqs @ "
-                         f"{ms.inf_per_s:,.0f} inf/s, p99 "
-                         f"{ms.latency.p99_ms:.3f} ms")
+            line = (f"  [{ms.model_id}] {ms.n_requests} reqs @ "
+                    f"{ms.inf_per_s:,.0f} inf/s, p99 "
+                    f"{ms.latency.p99_ms:.3f} ms")
+            if ms.silicon_inf_per_s:
+                line += (f" — silicon-equivalent {ms.silicon_inf_per_s:,.0f}"
+                         f" inf/s (x{ms.vs_silicon:.3f} of Table II)")
+            lines.append(line)
         return "\n".join(lines)
 
 
@@ -361,8 +372,8 @@ class PicBnnServer:
     # ------------------------------------------------------------------
     def register(self, model_id: str, model, *,
                  layer_sizes: Optional[Sequence[int]] = None,
-                 silicon_cost=None, mc_samples: int = 0,
-                 warmup: bool = False) -> None:
+                 silicon_cost: Optional[mapping.InferenceCost] = None,
+                 mc_samples: int = 0, warmup: bool = False) -> None:
         """Add a model to the registry.
 
         model : a `CompiledPipeline` (MLP or CNN), a `deploy.Deployment`
@@ -371,6 +382,13 @@ class PicBnnServer:
             either package).  The pipeline, conv operands and physics
             included, is copied onto every serving device
             (`CompiledPipeline.to`).
+        layer_sizes : optional (n_in, ..., n_classes) of a deployed MLP
+            — enables the Table-II silicon-equivalent throughput in
+            stats() via `mapping.model_inference_cost`.  Derived from a
+            pure-MLP Deployment.
+        silicon_cost : alternative to layer_sizes for other graphs — a
+            precomputed `mapping.InferenceCost` (e.g.
+            `convnet.cnn_inference_cost` for a CNN).
         mc_samples : > 0 serves a silicon model's requests through the
             per-request Monte-Carlo spec, the prediction of the summed
             votes; 0 serves one realization per request.
@@ -384,14 +402,11 @@ class PicBnnServer:
             raise RuntimeError("register() before start()")
         if model_id in self._models:
             raise ValueError(f"model {model_id!r} already registered")
-        if layer_sizes is not None or silicon_cost is not None:
-            raise NotImplementedError(
-                "Table-II stats (layer_sizes=/silicon_cost=) wait for the "
-                "cost-model slice of the port (core/mapping.py)"
-            )
         if isinstance(model, (str, Path)):
             model = Deployment.load(model)
         if isinstance(model, Deployment):
+            if layer_sizes is None and silicon_cost is None:
+                layer_sizes = model.layer_sizes  # None for conv graphs
             model = model.pipeline(self.devices[0])
         if not isinstance(model, CompiledPipeline):
             raise TypeError(
@@ -402,6 +417,24 @@ class PicBnnServer:
         silicon = phys is not None and not phys.is_noiseless
         if mc_samples and not silicon:
             raise ValueError("mc_samples needs a silicon-mode pipeline")
+        if layer_sizes is not None and silicon_cost is not None:
+            raise ValueError("pass layer_sizes OR silicon_cost, not both")
+        cost = silicon_cost
+        if layer_sizes is not None:
+            if (int(layer_sizes[0]), int(layer_sizes[-1])) != \
+                    (model.n_in, model.n_classes):
+                raise ValueError(
+                    f"layer_sizes {tuple(layer_sizes)} disagree with the "
+                    f"pipeline ({model.n_in} -> {model.n_classes})"
+                )
+            plans = [
+                mapping.plan_layer(int(n_out), int(n_in),
+                                   model.head.bias_cells)
+                for n_in, n_out in zip(layer_sizes[:-1], layer_sizes[1:])
+            ]
+            cost = mapping.model_inference_cost(
+                plans, int(model.head.thresholds.shape[0])
+            )
         if silicon:
             spec = (InferenceSpec(noise="per_request",
                                   mc_samples=int(mc_samples),
@@ -411,7 +444,7 @@ class PicBnnServer:
             spec = InferenceSpec()
         m = _Model(model_id=model_id,
                    pipes=[model.to(d) for d in self.devices],
-                   silicon=silicon, spec=spec)
+                   silicon=silicon, spec=spec, silicon_cost=cost)
         self._models[model_id] = m
         if warmup:
             self._warm_model(m)
@@ -742,20 +775,26 @@ class PicBnnServer:
         lat, que, svc, occ = _summaries(records)
         per_model = {}
         for mid, tot in totals.items():
+            m = self._models[mid]
             mlat, mque, msvc, mocc = _summaries(
                 [b for b in records if b.model_id == mid]
             )
             mwall = tot[3] - tot[2]
+            si = (m.silicon_cost.inferences_per_s
+                  if m.silicon_cost else None)
+            rate = tot[0] / mwall if mwall > 0 else float("inf")
             per_model[mid] = ModelStats(
                 model_id=mid,
                 n_requests=tot[0],
                 n_batches=tot[1],
                 mean_batch=tot[0] / tot[1],
                 mean_occupancy=mocc,
-                inf_per_s=tot[0] / mwall if mwall > 0 else float("inf"),
+                inf_per_s=rate,
                 latency=mlat,
                 queue=mque,
                 service=msvc,
+                silicon_inf_per_s=si,
+                vs_silicon=(rate / si if si else None),
             )
         return ServerStats(
             n_requests=n_req,

@@ -1,9 +1,8 @@
 """Declarative inference request spec for the compiled PiC-BNN pipeline.
 
 The port's own copy of `repro/spec.py` (pure Python): the same specs
-key the same program caches in both packages.  The port runs the
-noise="off" specs; the noisy ones raise at `CompiledPipeline.program`
-until the silicon-noise slice lands.
+key the same program caches in both packages, and the port's pipeline
+runs every one of them, noiseless and silicon.
 
 The paper's deployment contract is ONE search primitive — Algorithm 1
 with knob-configured noise.  :class:`InferenceSpec` says *what to run*
@@ -166,3 +165,61 @@ class InferenceSpec:
             parts.append("cumulative")
         return "spec(" + ",".join(parts) + ")"
 
+
+#: common request shapes, by name (also the shims' targets)
+VOTES = InferenceSpec()
+PREDICT = InferenceSpec(reduction="argmax")
+CUM_VOTES = InferenceSpec(cumulative=True)
+
+
+def legacy_entry_spec(name: str,
+                      mc_samples: Optional[int] = None) -> InferenceSpec:
+    """The `InferenceSpec` equivalent of a legacy entry-point name.
+
+    The eight-method family collapses onto the spec axes as follows
+    (`predict`/`predict_each` are the argmax reductions of `votes` /
+    `votes_each`):
+
+        votes             -> InferenceSpec()
+        votes_noisy       -> InferenceSpec(noise="batch")        # votes(key=)
+        votes_each        -> InferenceSpec(noise="per_request")
+        votes_mc          -> InferenceSpec(noise="batch", mc_samples=S)
+        votes_mc_each     -> InferenceSpec(noise="per_request", mc_samples=S)
+        votes_mc_each_sum -> ... mc_samples=S, reduction="sum"
+        cum_votes         -> InferenceSpec(noise="batch", cumulative=True)
+        predict           -> InferenceSpec(reduction="argmax")
+        predict_each      -> InferenceSpec(noise="per_request",
+                                           reduction="argmax")
+
+    `mc_samples` is required for the `votes_mc*` names and rejected
+    otherwise.  The reference's deprecated warmup `entries=` translation
+    uses it; the port carries it so both packages map the names alike.
+    """
+    table = {
+        "votes": dict(),
+        "votes_noisy": dict(noise="batch"),
+        "votes_each": dict(noise="per_request"),
+        "votes_mc": dict(noise="batch", mc=True),
+        "votes_mc_each": dict(noise="per_request", mc=True),
+        "votes_mc_each_sum": dict(noise="per_request", mc=True,
+                                  reduction="sum"),
+        "cum_votes": dict(noise="batch", cumulative=True),
+        "predict": dict(reduction="argmax"),
+        "predict_each": dict(noise="per_request", reduction="argmax"),
+    }
+    entry = table.get(name)
+    if entry is None:
+        raise ValueError(
+            f"unknown legacy entry {name!r}; known: {sorted(table)}"
+        )
+    wants_mc = entry.pop("mc", False)
+    if wants_mc and mc_samples is None:
+        raise ValueError(f"legacy entry {name!r} needs mc_samples=")
+    if not wants_mc and mc_samples is not None:
+        raise ValueError(f"legacy entry {name!r} takes no mc_samples")
+    return InferenceSpec(
+        noise=entry.get("noise", "off"),
+        mc_samples=mc_samples if wants_mc else None,
+        reduction=entry.get("reduction", "none"),
+        cumulative=entry.get("cumulative", False),
+    )

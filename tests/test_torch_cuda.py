@@ -16,9 +16,11 @@ import torch
 
 from repro_torch import pipeline as tpipe
 from repro_torch.configs.paper_cnn import build_cnn_pipeline
-from repro_torch.core import binarize, bnn, cam, convnet, ensemble
+from repro_torch.core import binarize, bnn, cam, convnet, ensemble, mapping
 from repro_torch.core.device_model import NOISELESS, SILICON
-from repro_torch.kernels import binary_gemm, cam_search, fused_conv, fused_mlp
+from repro_torch.data import synthetic
+from repro_torch.kernels import (binary_gemm, cam_search, fused_conv,
+                                 fused_mlp, ops)
 from repro_torch.serve.picbnn import BatchingPolicy, PicBnnServer
 from repro_torch.spec import InferenceSpec
 
@@ -737,3 +739,110 @@ def test_served_silicon_on_card_equals_direct(dev):
             direct[:30])
         np.testing.assert_array_equal(burst.votes_all(timeout=60),
                                       direct[30:])
+
+
+# ---------------------------------------------------------------------------
+# training on the card: a step against the CPU, the trained nets through
+# kernels 3 and 4, the CAM mapping, the int8 product
+# ---------------------------------------------------------------------------
+# card vs CPU on the same params and batch: float32 sums in another order
+# (cuDNN's TF32 is switched off for the comparison; the ±1 forward
+# products are exact either way)
+CARD_GRAD_TOL = 1e-5
+
+
+def _train_models(which):
+    """(loss, config, params drawn on the CPU, inputs, labels)."""
+    rng = np.random.default_rng(3)
+    gen = torch.Generator().manual_seed(0)
+    if which == "mlp":
+        cfg = bnn.MLPConfig((784, 128, 10))
+        x = rng.choice([-1.0, 1.0], (128, 784)).astype(np.float32)
+        return bnn.loss_fn, cfg, bnn.init_params(gen, cfg), x, \
+            rng.integers(0, 10, 128)
+    side, width, convs, hidden, n_cls = CNNS["mnist-28"]
+    cfg = convnet.CNNConfig(
+        side=side, encoding=binarize.InputEncoding("thermometer", width),
+        conv=tuple(convnet.ConvSpec(*c) for c in convs), hidden=hidden,
+        n_classes=n_cls)
+    x = rng.random((128, cfg.n_in)).astype(np.float32)
+    return convnet.cnn_loss, cfg, convnet.init_cnn_params(gen, cfg), x, \
+        rng.integers(0, n_cls, 128)
+
+
+@pytest.mark.parametrize("which", ["mlp", "cnn"])
+def test_training_step_on_card_equals_cpu(dev, which):
+    loss, cfg, params, x, y = _train_models(which)
+    out = []
+    for d in (dev, torch.device("cpu")):
+        p = {g: [{k: v.to(d).requires_grad_(k in bnn.TRAINED)
+                  for k, v in layer.items()} for layer in ls]
+             for g, ls in params.items()}
+        leaves = [layer[k] for ls in p.values() for layer in ls
+                  for k in bnn.TRAINED]
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            value, new = loss(p, x, y, cfg)
+            grads = torch.autograd.grad(value, leaves)
+        out.append((value.detach().cpu(), [g.cpu() for g in grads],
+                    [layer[k].detach().cpu() for ls in new.values()
+                     for layer in ls for k in ("mean", "var")]))
+    (lc, gc, sc), (lh, gh, sh) = out
+    torch.testing.assert_close(lc, lh, rtol=0, atol=CARD_GRAD_TOL)
+    for a, b in zip(gc + sc, gh + sh, strict=True):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=CARD_GRAD_TOL)
+
+
+def _trained_pair(dev):
+    """A small MLP and CNN trained on the card for a few steps."""
+    tx, ty, vx, vy = synthetic.make_dataset(synthetic.MNIST_LIKE, 512, 200)
+    mcfg = bnn.MLPConfig((784, 64, 10))
+    mlp = bnn.train_mlp(torch.Generator().manual_seed(0), mcfg,
+                        synthetic.binarize_images(tx), ty, epochs=2,
+                        batch=128, lr=2e-3)
+    _, ccfg, _, _, _ = _train_models("cnn")
+    cnn = convnet.train_cnn(torch.Generator().manual_seed(0), ccfg, tx, ty,
+                            epochs=2, batch=128, lr=2e-3)
+    assert mlp["layers"][0]["w"].device == dev  # the card by default
+    assert cnn["conv"][0]["var"].device == dev
+    return mcfg, mlp, ccfg, cnn, vx, vy
+
+
+def test_trained_votes_through_kernels_on_card_equal_cpu(dev):
+    mcfg, mlp, ccfg, cnn, vx, vy = _trained_pair(dev)
+    vxb = synthetic.binarize_images(vx)
+    for folded, x, kernel, kw in (
+            (bnn.fold(mlp, mcfg), vxb, fused_mlp.fused_mlp_votes, {}),
+            (convnet.fold_cnn(cnn, ccfg), vx, fused_conv.fused_conv_votes,
+             dict(image_side=ccfg.side, image_encoding=ccfg.encoding))):
+        card = tpipe.compile_pipeline(folded, ensemble.EnsembleConfig(), **kw)
+        cpu = tpipe.compile_pipeline(folded, ensemble.EnsembleConfig(),
+                                     device="cpu", **kw)
+        before = kernel.launches
+        for spec in SPECS[:2]:
+            assert torch.equal(card.run(x, spec).cpu(), cpu.run(x, spec))
+        assert kernel.launches > before
+
+
+def test_layer_forward_on_card_equals_cpu(dev):
+    mcfg, mlp, _, _, vx, _ = _trained_pair(dev)
+    mapped = mapping.map_layer(bnn.fold(mlp, mcfg)[0], mcfg.bias_cells)
+    assert len(mapped.col_tiles) == 4  # 784 bits on 256-bit rows
+    x = torch.from_numpy(synthetic.binarize_images(vx))
+    for mode in ("exact", "hierarchical"):
+        got = mapping.layer_forward(mapped, x.to(dev), mode)
+        assert got.device.type == "cuda"
+        assert torch.equal(got.cpu(), mapping.layer_forward(mapped, x, mode))
+
+
+@pytest.mark.parametrize("m", [1, 15, 17, 4096])
+@pytest.mark.parametrize("k,n", [(7, 10), (100, 3), (785, 128), (64, 8)])
+def test_binary_gemm_mxu_edges_equal_plain(dev, m, k, n):
+    rng = np.random.default_rng(m + k + n)
+    x = torch.from_numpy(rng.choice([-1.0, 1.0], (m, k)).astype(np.float32))
+    w = torch.from_numpy(rng.choice([-1.0, 1.0], (k, n)).astype(np.float32))
+    got = ops.binary_gemm_mxu(x.to(dev), w.to(dev))
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    assert torch.equal(got.cpu(), ops.binary_gemm_mxu_plain(x, w))
+    # leading dimensions, as the reference's dot_general takes them
+    got3 = ops.binary_gemm_mxu(x.reshape(1, m, k).to(dev), w.to(dev))
+    assert torch.equal(got3.cpu(), got.cpu().reshape(1, m, n))

@@ -172,7 +172,8 @@ def test_calibrated_and_noise_configs_round_trip(tmp_path):
 
 def test_compile_options_map_as_documented(tmp_path):
     """min_bucket/max_bucket map, impl/interpret/chunk/bq are ignored,
-    donate=True raises at compile, unknown options are refused."""
+    donate=True compiles and gives the same votes, unknown options are
+    refused."""
     jd, _, n_in, _ = _deployments("2048x64", None, max_bucket=32, bq=16,
                                   chunk=2, interpret=True)
     jd.save(tmp_path / "j")
@@ -184,8 +185,8 @@ def test_compile_options_map_as_documented(tmp_path):
     np.testing.assert_array_equal(td.run(x, VOTES).numpy(),
                                   np.asarray(jd.run(jnp.asarray(x), JSpec())))
     dd = dataclasses.replace(td, compile_options={"donate": True}, _pipes={})
-    with pytest.raises(NotImplementedError, match="donate"):
-        dd.pipeline()
+    np.testing.assert_array_equal(dd.run(x, VOTES).numpy(),
+                                  td.run(x, VOTES).numpy())
     with pytest.raises(ValueError, match="unknown compile options"):
         tdep.deploy(td.folded, block_size=4)
     with pytest.raises(ValueError, match="config="):

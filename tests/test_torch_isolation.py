@@ -1,6 +1,7 @@
 """The port stands alone: importing every `repro_torch` module pulls in
 neither `jax` nor any module of the JAX package, and its entry points
-default to the CUDA card (raising when there is none)."""
+(compiling, serving, training) default to the CUDA card (raising when
+there is none)."""
 
 import os
 import subprocess
@@ -25,15 +26,22 @@ _PROBE = textwrap.dedent("""
     assert not bad, bad
     assert len(names) >= 15, names
 
-    from repro_torch.core import bnn
+    from repro_torch.core import bnn, convnet, mapping
+    from repro_torch.data import synthetic
     from repro_torch.pipeline import compile_pipeline
     from repro_torch.serve.picbnn import PicBnnServer
     layer = bnn.FoldedLayer(weights_pm1=torch.ones(4, 8, dtype=torch.int8)
                             .numpy(), c=torch.zeros(4, dtype=torch.int64)
                             .numpy())
+    assert mapping.layer_forward and synthetic.make_dataset
+    x, y = torch.ones(4, 8).numpy(), torch.zeros(4, dtype=torch.int64).numpy()
+    gen = torch.Generator()
     if not torch.cuda.is_available():
         for entry in (lambda: compile_pipeline([layer]),
-                      lambda: PicBnnServer()):
+                      lambda: PicBnnServer(),
+                      lambda: bnn.train_mlp(gen, bnn.MLPConfig((8, 2)), x, y),
+                      lambda: convnet.train_cnn(gen, convnet.CNNConfig(), x,
+                                                y)):
             try:
                 entry()
             except RuntimeError as e:

@@ -106,8 +106,12 @@ def test_unported_options_raise():
     # silicon mode is ported: noise= compiles and carries the physics
     nl = tpipe.compile_pipeline(tf, cfg, device="cpu", noise=NOISELESS)
     assert nl.physics is not None and nl.physics.is_noiseless
-    with pytest.raises(NotImplementedError):
-        tpipe.compile_pipeline(tf, cfg, device="cpu", donate=True)
+    # donate= is the reference's no-op: it compiles and changes no vote
+    donated = tpipe.compile_pipeline(tf, cfg, device="cpu", donate=True)
+    xd = pm1(np.random.default_rng(1), (5, sizes[0]))
+    assert torch.equal(
+        donated.run(xd, InferenceSpec()),
+        tpipe.compile_pipeline(tf, cfg, device="cpu").run(xd, InferenceSpec()))
     # the CNN slice is ported: image_side on an MLP graph is the
     # reference's ValueError
     with pytest.raises(ValueError, match="conv-only"):

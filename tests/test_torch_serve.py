@@ -1,20 +1,34 @@
 """The port's serving engine (`repro_torch.serve`): served results equal a
 direct `run` (noiseless, and silicon with per-request keys under any
 coalescing), batches never mix models, the micro-batcher makes the same
-decisions as the reference's, and what waits for later slices raises."""
+decisions as the reference's, the Table-II stats equal the reference's,
+and what waits for later slices raises."""
 
 import numpy as np
 import pytest
 import torch
 
-from _torch_port import BANK_BIAS, BANK_NETS, pm1, random_folded
+from _torch_port import BANK_BIAS, BANK_NETS, pm1, random_cnn, random_folded
+from repro import deploy as jdep
+from repro import pipeline as jpipe
+from repro.core import convnet as jconv
+from repro.core import ensemble as jens
 from repro.serve import scheduler as jsched
+from repro.serve.picbnn import BatchingPolicy as JPolicy
+from repro.serve.picbnn import PicBnnServer as JServer
+from repro_torch import deploy as tdep
+from repro_torch.core import convnet as tconv
 from repro_torch import pipeline as tpipe
 from repro_torch.core import ensemble as tens
 from repro_torch.core.device_model import NOISELESS, SILICON
 from repro_torch.serve import scheduler as tsched
 from repro_torch.serve.picbnn import BatchingPolicy, PicBnnServer, QueueFullError
 from repro_torch.spec import InferenceSpec
+
+
+def _jfolded(bank):
+    sizes, bias = BANK_NETS[bank], BANK_BIAS[bank]
+    return random_folded(sizes, sum(map(ord, bank)), bias)[0]
 
 
 def _pipe(bank, device="cpu"):
@@ -100,9 +114,20 @@ def test_submit_validation_and_unported_options():
         server.register("m", pipe)
     with pytest.raises(ValueError, match="mc_samples"):
         server.register("m2", pipe, mc_samples=4)
-    for kw in (dict(layer_sizes=sizes), dict(silicon_cost=object())):
-        with pytest.raises(NotImplementedError):
+    # the Table-II options are ported: the reference's ValueErrors, word
+    # for word
+    jserver = JServer()
+    jpipe_ = jpipe.compile_pipeline(_jfolded("2048x64"),
+                                    jens.EnsembleConfig(bias_cells=32))
+    bad = (dict(layer_sizes=sizes, silicon_cost=object()),
+           dict(layer_sizes=(sizes[0] + 1, *sizes[1:])),
+           dict(layer_sizes=(*sizes[:-1], sizes[-1] + 1)))
+    for kw in bad:
+        with pytest.raises(ValueError) as want:
+            jserver.register("m3", jpipe_, **kw)
+        with pytest.raises(ValueError) as got:
             server.register("m3", pipe, **kw)
+        assert str(got.value) == str(want.value)
     # Deployments and saved directories are ported: a directory without
     # a deployment.json and an object of another type are rejected
     with pytest.raises(FileNotFoundError, match="deployment"):
@@ -114,6 +139,61 @@ def test_submit_validation_and_unported_options():
     with pytest.raises(ValueError, match="fanout"):
         PicBnnServer(devices=["cpu"], fanout="ring")
     server.close()
+
+
+def test_table2_stats_equal_reference():
+    """`silicon_inf_per_s` from `layer_sizes=` (given, or derived from a
+    Deployment) and from `silicon_cost=` equals the reference server's on
+    the same models; `vs_silicon` is the served rate over it."""
+    bank = "1024x128"
+    sizes, bias = BANK_NETS[bank], BANK_BIAS[bank]
+    jf, tf = random_folded(sizes, 3, bias)
+    jcnn, tcnn, jcfg, tcfg = random_cnn(2)
+    tpipe_ = tpipe.compile_pipeline(tf, tens.EnsembleConfig(bias_cells=bias),
+                                    device="cpu", min_bucket=8)
+    models = {
+        "given": (dict(model=tpipe_, layer_sizes=sizes),
+                  dict(model=jpipe.compile_pipeline(
+                      jf, jens.EnsembleConfig(bias_cells=bias),
+                      min_bucket=8), layer_sizes=sizes)),
+        "derived": (dict(model=tdep.deploy(tf, ens_cfg=tens.EnsembleConfig(
+                        bias_cells=bias), device="cpu", min_bucket=8)),
+                    dict(model=jdep.deploy(jf, ens_cfg=jens.EnsembleConfig(
+                        bias_cells=bias), min_bucket=8))),
+        "cnn": (dict(model=tdep.deploy(tcnn, config=tcfg, device="cpu",
+                                       min_bucket=8),
+                     silicon_cost=tconv.cnn_inference_cost(tcfg)),
+                dict(model=jdep.deploy(jcnn, config=jcfg, min_bucket=8),
+                     silicon_cost=jconv.cnn_inference_cost(jcfg))),
+        "plain": (dict(model=tpipe_), dict(model=None)),
+    }
+    rng = np.random.default_rng(1)
+    xs = {mid: pm1(rng, (12, sizes[0])) for mid in ("given", "derived",
+                                                     "plain")}
+    xs["cnn"] = rng.random((12, tcfg.n_in)).astype(np.float32)
+    tsrv = PicBnnServer(BatchingPolicy(max_batch=8, max_wait_us=200),
+                        devices=["cpu"])
+    jsrv = JServer(JPolicy(max_batch=8, max_wait_us=200))
+    for mid, (tkw, jkw) in models.items():
+        tsrv.register(mid, tkw.pop("model"), **tkw)
+        jm = jkw.pop("model")
+        if jm is not None:
+            jsrv.register(mid, jm, **jkw)
+    for srv, names in ((tsrv, list(models)), (jsrv, list(models)[:-1])):
+        with srv:
+            hs = [srv.submit(n, xs[n][i]) for n in names for i in range(12)]
+            for h in hs:
+                h.result(timeout=60)
+    tst, jst = tsrv.stats(), jsrv.stats()
+    for mid in ("given", "derived", "cnn"):
+        t, j = tst.per_model[mid], jst.per_model[mid]
+        assert t.silicon_inf_per_s == j.silicon_inf_per_s > 0
+        assert t.vs_silicon == t.inf_per_s / t.silicon_inf_per_s
+    assert tst.per_model["plain"].silicon_inf_per_s is None
+    assert tst.per_model["plain"].vs_silicon is None
+    summary = tst.summary()
+    assert summary.count("of Table II") == 3
+    assert "silicon-equivalent" in summary
 
 
 def test_default_devices_are_cuda():
