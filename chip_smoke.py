@@ -42,7 +42,7 @@ exit 0):
    in this run.  Kernel 2 is not on this path (the reference's pipeline
    never calls it either); its own path is the public op
    `kernels.ops.cam_vote`, driven next on the two MLPs' head queries with
-   the counts set to 0 just before it.
+   the counts set to 0 just before it, and the LM's CAM head (phase 7).
 4. Correctness of what came out: the card's results equal the same
    pipelines on the CPU at every batch size and the digital oracles
    (folded_forward_exact + votes_fused for the MLPs, `conv_votes_ref`
@@ -88,9 +88,29 @@ exit 0):
    K outside 8Z; Table II from `model_inference_cost` /
    `cnn_inference_cost`, labelled as the 65 nm macro's model, the MNIST
    MLP's inside the paper's band.  A `{"train": ...}` line.
-7. A `{"kernels": [...]}` line (launches on the kernel's path, on the
-   silicon path and on the train path, error, times, sampled-form times,
-   bound), then, as the last line, `{"ok": true, "device": ...}`.
+7. The LM serving path, with every launch counter set to 0 just before
+   it: llama3.2-1b at full width and depth (16 blocks, bf16, vocab
+   128,256) plain, +binary-ffn (the BitLinear FFN on kernel 1) and
+   +cam-head (Algorithm 1 as the decode head on kernel 2), each through
+   `Engine.generate` (8 requests, prompt 16, 16 new tokens, batches of
+   4, no device argument); musicgen-medium+cam-head at full width and
+   depth through `prefill_step`/`decode_step` on random frame
+   embeddings; mixtral-8x7b and falcon-mamba-7b at full width, 2 blocks,
+   through `Engine.generate`.  Kernels 1 and 2 must have launched.
+   Checks: each kernel `torch.equal` to its plain version and to the
+   library's float32 ±1 product at every LM shape of the path (kernel 2
+   at C = 128,256), on the models' packed rows; teacher-forced decode
+   logits within LM_ATOL (LM_ATOL_BITLINEAR with a BitLinear FFN) of
+   `forward`; the engine's tokens equal to the teacher-forced argmax and
+   to forward's where its margin exceeds twice the tolerance;
+   llama3.2-1b at full width, 2 blocks, float32, and its BitLinear
+   projections: card == CPU.  Prefill ms, decode ms a token, tokens/s,
+   and each kernel's device ms at the LM shapes beside its bound and the
+   library's time, in a `{"lm": ...}` line.
+8. A `{"kernels": [...]}` line (launches on the kernel's path, on the
+   silicon, train and LM paths, error, times, sampled-form times, bound,
+   the LM-shape rows), then, as the last line, `{"ok": true, "device":
+   ...}`.
 
 Without CUDA, or without the rest of the repository beside it, the script
 exits non-zero before printing any result.  It imports nothing of JAX.
@@ -1072,6 +1092,425 @@ def train_phase(dev, smi: str, counted, quick: bool) -> dict:
         table2_macro_model=table2, launches=launches, card=smi)
 
 
+# ------------------------------------------------------------ LM phase (7)
+# The LM serving workload: 8 requests of 16 prompt tokens, 16 new tokens
+# each, in batches of 4 (the reference launcher's defaults)
+LM_REQUESTS, LM_PROMPT, LM_NEW, LM_BATCH = 8, 16, 16, 4
+# bf16 logits, teacher-forced decode against forward over the same
+# sequence: decode rounds the query and the softmax weights to bf16
+# where forward keeps them in float32 (the reference's two attention
+# paths) and every projection rounds its output to bf16, so through
+# 16-48 layers logits of O(1-5) move by a few hundredths.  A BitLinear
+# FFN binarizes its inputs: an input within that rounding of 0 flips its
+# sign between the two paths and moves every output of the projection by
+# a step of 2 * alpha * beta, so its logits move by a few tenths (0.54
+# max, 0.10 RMS against an RMS logit of 1.0 at llama3.2-1b, NVIDIA H100
+# 80GB HBM3, 700 W).  Greedy tokens must equal forward's argmax where its
+# top-2 margin exceeds twice the tolerance (each logit may move by it).
+LM_ATOL, LM_ATOL_BITLINEAR = 0.25, 1.0
+# Top-k routing is a step function too: the rounding that separates the
+# two paths can swap a token's expert between two nearly tied router
+# probabilities, which moves that token's logits by O(1) (3.28 at
+# mixtral-8x7b, 2 blocks, bf16, NVIDIA H100 80GB HBM3, 700 W).  An MoE
+# model's bf16 difference is reported, and the pointwise check runs on a
+# float32 copy of the same weights, where a swap needs a tie within
+# float32 rounding; there the two paths differ by float32 rounding.
+LM_MOE_F32_ATOL = 1e-3
+# llama3.2-1b at full width, 2 blocks, float32 (TF32 off): card against
+# CPU, the same arithmetic in another summation order; the BitLinear
+# projections on the same inputs (kernel 1 against the plain route)
+LM_F32_ATOL, LM_F32_RTOL = 1e-4, 1e-4
+
+
+def lm_requests(cfg, seed: int) -> list:
+    from repro_torch.serve.engine import Request
+
+    rng = np.random.default_rng(seed)
+    return [Request(uid=i, prompt=rng.integers(1, cfg.vocab_size, LM_PROMPT)
+                    .astype(np.int32), max_new_tokens=LM_NEW)
+            for i in range(LM_REQUESTS)]
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def lm_engine_run(cfg, params, seed: int, dev, on_card: bool):
+    """`Engine.generate` over the workload twice (the first warms the
+    handles, the libraries and the packed weights; both are on the
+    path), no device argument on the card.  Returns (results of the
+    second, its prefill ms, decode ms per token, tokens/s)."""
+    from repro_torch.serve.engine import Engine, EngineConfig
+
+    eng = Engine(cfg, params, EngineConfig(max_batch=LM_BATCH, eos_id=-1),
+                 **({} if on_card else {"device": dev}))
+    require(eng.device == dev, f"{cfg.name}: Engine() not on the card")
+    eng.generate(lm_requests(cfg, seed))
+    sync(dev)
+    t0 = time.perf_counter()
+    res = eng.generate(lm_requests(cfg, seed))
+    sync(dev)
+    wall = time.perf_counter() - t0
+    heads = res[::LM_BATCH]  # one Result per batch carries its timings
+    return res, dict(
+        prefill_ms=float(np.mean([r.prefill_ms for r in heads])),
+        decode_ms_per_token=float(np.mean([r.decode_ms / (LM_NEW - 1)
+                                           for r in heads])),
+        tokens_per_s=sum(len(r.tokens) for r in res) / wall,
+        requests=len(res), new_tokens=sum(len(r.tokens) for r in res))
+
+
+def lm_steps_run(cfg, params, seq):
+    """prefill on the first LM_PROMPT positions of seq (tokens [B, T] or
+    frame embeddings [B, T, D]), then one decode step per later position
+    (teacher-forced).  Returns (float32 [B, T - LM_PROMPT + 1, V], prefill
+    ms, decode ms per step)."""
+    from repro_torch.serve import steps
+
+    key = "embeds" if cfg.embeds_input else "tokens"
+    s, dev = LM_PROMPT, seq.device
+    n = seq.shape[1] - s + 1
+    t0 = time.perf_counter()
+    lg, cache = steps.prefill_step(cfg, params, {key: seq[:, :s]},
+                                   max_len=s + n)
+    sync(dev)
+    t1 = time.perf_counter()
+    out = [lg]
+    for i in range(n - 1):
+        lg, cache = steps.decode_step(cfg, params, cache, seq[:, s + i:
+                                                              s + i + 1],
+                                      s + i)
+        out.append(lg)
+    sync(dev)
+    t2 = time.perf_counter()
+    return torch.stack(out, 1), (t1 - t0) * 1e3, (t2 - t1) * 1e3 / (n - 1)
+
+
+def decode_and_forward(cfg, params, seq):
+    """Teacher-forced decode logits (`lm_steps_run`) and `forward`'s at
+    the same positions, both float32 [B, T - LM_PROMPT + 1, V]."""
+    from repro_torch.models import model as M
+
+    tf, _, _ = lm_steps_run(cfg, params, seq)
+    kw = {"embeds" if cfg.embeds_input else "tokens": seq}
+    return tf, M.forward(params, cfg, **kw)[0][:, LM_PROMPT - 1:]
+
+
+def lm_kernel_rows(card, name, cases) -> list:
+    """Each (label, kernel, plain, library, work) case: kernel ==
+    plain == library (torch.equal), then device, call, plain and library
+    times beside the bound of `work` (Card.bound_ms arguments)."""
+    rows = []
+    for label, fn, plain, lib, work, lib_name in cases:
+        got, want = fn(), plain()
+        require(torch.equal(got, want), f"{name} {label}: kernel != plain")
+        require(torch.equal(lib().to(got.dtype), got),
+                f"{name} {label}: {lib_name} != kernel")
+        row = dict(shape=label, ms=device_ms(fn, iters=20),
+                   call_ms=time_ms(fn, 20), plain_ms=time_ms(plain, 3),
+                   **bound_fields(card, *work),
+                   library_ms=device_ms(lib, iters=20), library=lib_name,
+                   max_abs_err=int((got - want).abs().max()))
+        rows.append(row)
+        print(f"  LM {name} {label}: == plain == library; kernel "
+              f"{row['ms']} ms (call {row['call_ms']:.4f} ms), plain "
+              f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_route']}), {lib_name} {row['library_ms']} ms")
+    return rows
+
+
+def gemm_case(label, q, w):
+    """Kernel 1 on q [M, Kw] against w [N, Kw]; library: the reference's
+    float32 ±1 product (TF32 off) of the unpacked operands, as HD."""
+    from repro_torch.core import binarize
+    from repro_torch.kernels import binary_gemm
+
+    (m, kw), n = q.shape, w.shape[0]
+    k = 32 * kw
+    xf = binarize.unpack_bits(q, k).float() * 2 - 1
+    wf = (binarize.unpack_bits(w, k).float() * 2 - 1).t().contiguous()
+    pairs = m * n * kw
+    return (f"{label} x[{m},{kw}] w[{n},{kw}]",
+            lambda: binary_gemm.binary_gemm_hd(q, w),
+            lambda: binary_gemm.binary_gemm_hd_plain(q, w),
+            lambda: ((k - torch.matmul(xf, wf)) * 0.5),
+            (pairs, 2 * pairs, 4 * (m * kw + n * kw + m * n), 32 * pairs, 0),
+            "float32 ±1 torch.matmul")
+
+
+def vote_case(label, q, rows, thr):
+    """Kernel 2 on q [B, Kw] against rows [C, Kw], int [P] schedule;
+    library: the reference's ±1 product (float32, exact) then the
+    threshold compare."""
+    from repro_torch.core import binarize
+    from repro_torch.kernels import cam_search
+
+    (b, kw), c, p = q.shape, rows.shape[0], thr.shape[0]
+    k = 32 * kw
+    hf = binarize.unpack_bits(q, k).float() * 2 - 1
+    rf = (binarize.unpack_bits(rows, k).float() * 2 - 1).t().contiguous()
+    tf = thr.float()
+    pairs, vote = b * c * kw, 2 * b * c * p
+    return (f"{label} q[{b},{kw}] rows[{c},{kw}] P={p}",
+            lambda: cam_search.cam_vote(q, rows, thr),
+            lambda: cam_search.cam_vote_plain(q, rows, thr),
+            lambda: (((k - torch.matmul(hf, rf)) * 0.5)[..., None]
+                     <= tf).sum(-1),
+            (pairs, 2 * pairs + vote, 4 * (b * kw + c * kw + p + b * c),
+             32 * pairs, vote),
+            "float32 ±1 torch.matmul + compare")
+
+
+def lm_phase(dev, smi: str, card, counted, quick: bool) -> dict:
+    """Phase 7: the LM serving path (`repro_torch.models`, `serve.engine`).
+
+    With every launch count set to 0 just before: llama3.2-1b at full
+    width and depth (16 blocks, bf16, V = 128,256) three ways (plain,
+    +binary-ffn: BitLinear FFN on kernel 1, +cam-head: Algorithm 1 as the
+    decode head on kernel 2), each through `Engine.generate` with no
+    device argument; musicgen-medium+cam-head at full width and depth
+    (48 blocks, V = 2,048) through `prefill_step`/`decode_step` on random
+    frame embeddings; mixtral-8x7b (MoE; capacity factor 8, so prefill,
+    decode and forward all route without drops) and falcon-mamba-7b
+    (SSM) at full width, 2 blocks, through `Engine.generate`.  Kernels 1
+    and 2 must have launched.  Then the checks: each kernel equal to its
+    plain version (and to the library's ±1 product) at every LM shape of
+    the path, on the model's packed rows; decode logits, teacher-forced,
+    within LM_ATOL of `forward` over the generated sequence; the
+    engine's tokens equal to the teacher-forced argmax and to forward's
+    where its top-2 margin exceeds 2 * LM_ATOL; llama3.2-1b at full
+    width, 2 blocks, float32: card == CPU within LM_F32_*.  `quick` (a
+    CPU rehearsal) takes the `+smoke` configs."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import binary_lm
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import MLP
+
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    smoke = "+smoke" if quick else ""
+
+    def cut(name, **kw):  # full width; depth cut where asked
+        return dataclasses.replace(configs.get_config(name + smoke), **kw)
+
+    gen = torch.Generator(dev).manual_seed(SEED + 21)
+    here = {} if on_card else {"device": dev}
+    served = {"llama3.2-1b" + v: cut("llama3.2-1b" + v)
+              for v in ("", "+binary-ffn", "+cam-head")}
+    served["mixtral-8x7b/2"] = cut("mixtral-8x7b", n_layers=2,
+                                   capacity_factor=8.0)
+    served["falcon-mamba-7b/2"] = cut("falcon-mamba-7b", n_layers=2)
+    mg_cfg = cut("musicgen-medium+cam-head")
+    t0 = time.perf_counter()
+    params = {k: M.init_params(c, gen, **here) for k, c in served.items()}
+    mg = M.init_params(mg_cfg, gen, **here)
+    require(all(p.device == dev for p in params.values()),
+            "init_params() with no device did not land on the card")
+    sync(dev)
+    print(f"lm: {len(params) + 1} models drawn on {dev} in "
+          f"{time.perf_counter() - t0:.1f} s: "
+          f"{sum(c.param_count() for c in served.values()) / 1e9:.2f} + "
+          f"{mg_cfg.param_count() / 1e9:.2f} B parameters")
+    frames = torch.randn((LM_BATCH, LM_PROMPT + LM_NEW - 1, mg_cfg.d_model),
+                         generator=gen, device=dev)
+
+    # ------------------------------------ the LM path, counts from 0
+    for fn in counted:
+        fn.launches = 0
+    out, perf = {}, {}
+    for key, cfg in served.items():
+        out[key], perf[key] = lm_engine_run(cfg, params[key], SEED + 22,
+                                            dev, on_card)
+    lm_steps_run(mg_cfg, mg, frames)  # warm
+    mg_votes, pre, dec = lm_steps_run(mg_cfg, mg, frames)
+    perf["musicgen-medium+cam-head"] = dict(
+        prefill_ms=pre, decode_ms_per_token=dec,
+        tokens_per_s=LM_BATCH * LM_NEW / ((pre + dec * (LM_NEW - 1)) / 1e3),
+        requests=LM_BATCH, new_tokens=LM_BATCH * LM_NEW)
+    sync(dev)
+    launches = {fn.__name__: fn.launches for fn in counted}
+    print(f"LM path: launches {launches}")
+    for name in ("binary_gemm_hd", "cam_vote"):
+        require(launches[name] > 0 or not on_card,
+                f"{name} was not launched on the LM path")
+    for key, p in perf.items():
+        print(f"  {key:26s} prefill {p['prefill_ms']:.2f} ms, decode "
+              f"{p['decode_ms_per_token']:.3f} ms/token, "
+              f"{p['tokens_per_s']:.1f} tokens/s ({p['requests']} requests, "
+              f"{p['new_tokens']} new tokens; {smi})")
+
+    # ---------------------------------- kernels at the LM path's shapes
+    bl = params["llama3.2-1b+binary-ffn"]
+    cam = params["llama3.2-1b+cam-head"]
+    ffn = bl.blocks[0].sub0.ffn
+    k1, k2 = [], []
+    with torch.no_grad():
+        prompts = torch.from_numpy(np.stack(
+            [r.prompt for r in lm_requests(bl.cfg, SEED + 22)]))
+        for label, m in (("prefill", LM_BATCH * LM_PROMPT),
+                         ("decode", LM_BATCH)):
+            x = bl.embed[prompts.to(dev)].reshape(-1, bl.cfg.d_model)[:m]
+            act = torch.nn.functional.silu(binary_lm._bit_matmul_packed(
+                ffn, "w_gate", x).float()).to(x.dtype) \
+                * binary_lm._bit_matmul_packed(ffn, "w_up", x)
+            for name, q in (("w_gate", x), ("w_down", act)):  # w_up: w_gate's
+                rows = binary_lm.bitlinear_weights(ffn, name)[0]
+                k1.append(gemm_case(f"BitLinear {label} {name}",
+                                    binary_lm.sign_bits(q), rows))
+        # the CAM heads' queries: the sign bits of the final hidden state
+        # at the last position of a generated sequence
+        seq = torch.cat([prompts[:LM_BATCH].to(dev), torch.tensor(
+            [r.tokens[:-1] for r in out["llama3.2-1b+cam-head"][:LM_BATCH]],
+            device=dev)], 1)
+        h_cam, _ = M.final_hidden(cam, cam.cfg, tokens=seq)
+        h_mg, _ = M.final_hidden(mg, mg_cfg, embeds=frames)
+        for label, model, h in (("llama3.2-1b", cam, h_cam[:, -1]),
+                                ("musicgen-medium", mg, h_mg[:, -1])):
+            rows = binary_lm.packed_rows(model.cam_head, "rows",
+                                         model.cam_head.rows)
+            k2.append(vote_case(f"CAM head {label}", binary_lm.sign_bits(h),
+                                rows, model.cam_head.thresholds))
+        lm_rows = {"binary_gemm_hd": lm_kernel_rows(card, "binary_gemm_hd",
+                                                    k1),
+                   "cam_vote": lm_kernel_rows(card, "cam_vote", k2)}
+        del k1, k2
+
+    # --------------------------- decode against forward, tokens, logits
+    errs = {}
+    with torch.no_grad():
+        for key, cfg in list(served.items()) + [("musicgen-medium+cam-head",
+                                                 mg_cfg)]:
+            model = mg if key.startswith("musicgen") else params[key]
+            if cfg.embeds_input:
+                seqs_b = [frames]
+            else:
+                reqs = lm_requests(cfg, SEED + 22)
+                res = out[key]
+                seqs_b = [torch.cat([
+                    torch.from_numpy(np.stack([r.prompt for r in
+                                               reqs[i:i + LM_BATCH]])),
+                    torch.tensor([r.tokens[:-1]
+                                  for r in res[i:i + LM_BATCH]])], 1).to(dev)
+                    for i in range(0, LM_REQUESTS, LM_BATCH)]
+            plain_head = dataclasses.replace(cfg, cam_head=False)
+            moe = cfg.n_experts > 0
+            tol = (None if moe else LM_ATOL_BITLINEAR if cfg.binary_ffn
+                   else LM_ATOL)
+            worst, sq, n_el, sure_n, sure_all = 0.0, 0.0, 0, 0, 0
+            for j, seq in enumerate(seqs_b):
+                tf, fw = decode_and_forward(plain_head, model, seq)
+                require(tf.shape == fw.shape and bool(torch.isfinite(tf)
+                                                      .all()),
+                        f"{key}: decode logits {tuple(tf.shape)} not finite")
+                worst = max(worst, float((tf - fw).abs().max()))
+                sq += float((tf - fw).pow(2).sum())
+                n_el += tf.numel()
+                if cfg.embeds_input:
+                    votes = mg_votes[:, 1:]
+                    require(bool(((votes >= 0) & (votes <= cfg.
+                                                  cam_head_thresholds)
+                                  & (votes == votes.round())).all()),
+                            f"{key}: CAM-head votes outside 0..P")
+                    continue
+                toks = torch.tensor([r.tokens for r in
+                                     out[key][j * LM_BATCH:
+                                              (j + 1) * LM_BATCH]],
+                                    device=dev)
+                # the engine's tokens: the argmax of the same decode steps
+                again = tf if not cfg.cam_head else lm_steps_run(
+                    cfg, model, seq)[0]
+                require(torch.equal(again.argmax(-1), toks),
+                        f"{key}: engine tokens != teacher-forced argmax")
+                if moe:
+                    continue
+                top2 = fw.topk(2, -1).values
+                sure = (top2[..., 0] - top2[..., 1]) > 2 * tol
+                if cfg.cam_head:
+                    sure[:, 1:] = False  # decode reads votes, not logits
+                require(torch.equal(fw.argmax(-1)[sure], toks[sure]),
+                        f"{key}: greedy tokens != forward's argmax where "
+                        f"the margin exceeds {2 * tol}")
+                sure_n += int(sure.sum())
+                sure_all += sure.numel()
+            require(tol is None or worst <= tol, f"{key}: decode vs forward "
+                    f"max |dlogit| {worst:.4f} > {tol}")
+            rms = (sq / n_el) ** 0.5
+            errs[key] = dict(decode_vs_forward_max_abs=worst,
+                             decode_vs_forward_rms=rms, tol=tol,
+                             tokens_checked_vs_forward=sure_n,
+                             tokens=sure_all)
+            if moe:  # the pointwise check on a float32 copy
+                cfg32 = dataclasses.replace(plain_head, dtype="float32")
+                twin = M.CausalLM(cfg32, dev)
+                twin.load_state_dict(model.state_dict())
+                worst32 = max(float((a - b).abs().max()) for a, b in (
+                    decode_and_forward(cfg32, twin, seq) for seq in seqs_b))
+                del twin
+                require(worst32 <= LM_MOE_F32_ATOL,
+                        f"{key}: float32 copy, decode vs forward max "
+                        f"|dlogit| {worst32:.2e} > {LM_MOE_F32_ATOL}")
+                errs[key].update(f32_decode_vs_forward_max_abs=worst32,
+                                 f32_tol=LM_MOE_F32_ATOL)
+                print(f"  {key:26s} float32 copy: decode vs forward max "
+                      f"|dlogit| {worst32:.2e} (tol {LM_MOE_F32_ATOL})")
+            print(f"  {key:26s} decode vs forward max |dlogit| {worst:.4f}"
+                  f" ({'reported' if moe else f'tol {tol}'}), RMS "
+                  f"{rms:.4f}; " + (
+                      "votes in 0..P" if cfg.embeds_input else
+                      "engine tokens == teacher-forced argmax; == forward "
+                      f"argmax at {sure_n}/{sure_all} positions past the "
+                      "margin"))
+
+        # llama3.2-1b, full width, 2 blocks, float32: card against CPU
+        cfg32 = cut("llama3.2-1b", n_layers=2, dtype="float32")
+        m32 = M.init_params(cfg32, gen, **here)
+        cpu32 = M.CausalLM(cfg32, "cpu")
+        cpu32.load_state_dict({k: v.cpu() for k, v in
+                               m32.state_dict().items()})
+        toks = prompts[:2]
+        got = M.forward(m32, cfg32, tokens=toks.to(dev))[0].cpu()
+        want = M.forward(cpu32, cfg32, tokens=toks)[0]
+        f32_err = float((got - want).abs().max())
+        require(bool(((got - want).abs() <= LM_F32_ATOL
+                      + LM_F32_RTOL * want.abs()).all()),
+                f"llama3.2-1b f32 2 blocks: card != CPU (max {f32_err})")
+        print(f"  llama3.2-1b, 2 blocks, float32: card == CPU, max |d| "
+              f"{f32_err:.2e} (tol {LM_F32_ATOL} + {LM_F32_RTOL}|cpu|)")
+        # the BitLinear projections at full width on the same inputs:
+        # kernel 1 on the card, the plain route on the CPU
+        bit32 = cut("llama3.2-1b+binary-ffn", n_layers=2, dtype="float32")
+        ffn, ffn_cpu = MLP(bit32, dev), MLP(bit32, "cpu")
+        ffn.draw(gen)
+        ffn_cpu.load_state_dict({k: v.cpu() for k, v in
+                                 ffn.state_dict().items()})
+        x = torch.randn((LM_BATCH * LM_PROMPT, bit32.d_model),
+                        generator=gen, device=dev)
+        act = torch.randn((LM_BATCH * LM_PROMPT, bit32.d_ff),
+                          generator=gen, device=dev)
+        for name, q in (("w_gate", x), ("w_up", x), ("w_down", act)):
+            got = binary_lm._bit_matmul_packed(ffn, name, q).cpu()
+            want = binary_lm._bit_matmul_packed(ffn_cpu, name, q.cpu())
+            require(bool(((got - want).abs() <= LM_F32_ATOL
+                          + LM_F32_RTOL * want.abs()).all()),
+                    f"BitLinear {name} float32: card != CPU")
+            f32_err = max(f32_err, float((got - want).abs().max()))
+        print(f"  BitLinear w_gate/w_up/w_down at full width, float32, same "
+              f"inputs: card (kernel 1) == CPU (plain); max |d| incl. the "
+              f"model {f32_err:.2e}")
+    del params, mg, m32, cpu32, ffn, ffn_cpu
+    if on_card:
+        torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    print(f"LM phase: {phase_s:.1f} s")
+    return dict(launches=launches, perf=perf, kernels=lm_rows, checks=errs,
+                f32_card_vs_cpu_max_abs=f32_err, phase_s=phase_s, card=smi,
+                workload=dict(requests=LM_REQUESTS, prompt=LM_PROMPT,
+                              max_new=LM_NEW, batch=LM_BATCH))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check needs the card",
@@ -1429,25 +1868,38 @@ def run(dev: torch.device, b_main: int, batches, card: Card,
     train = train_phase(dev, smi, counted, quick=not on_card)
     print(json.dumps({"train": train}))
 
+    # ------------------------------------------- the LM path (phase 7)
+    lm = lm_phase(dev, smi, card, counted, quick=not on_card)
+    print(json.dumps({"lm": lm}))
+
     # ------------------------------------------------------------ summary
     line = []
     for name, r in report.items():
         main = r["per_model"]["hg_cnn" if "conv" in name else "hg"]
-        op_path = name == "cam_vote"  # not on the main path (phase 3)
+        # kernel 2 is not on the classifier's main path (phase 3): its
+        # paths are the LM CAM head (phase 7) and the public op, and its
+        # headline row is the LM head's shape
+        lm_path = name == "cam_vote"
+        if lm_path:
+            main = lm["kernels"][name][0]
         line.append(dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name],
-            path=("kernels.ops.cam_vote" if op_path
+            path=("LM CAM head (Engine decode, musicgen decode_step) + "
+                  "kernels.ops.cam_vote" if lm_path
                   else "pipeline run + server"),
-            launches=(op_launches if op_path else launches)[name],
+            launches=(lm["launches"][name] + op_launches[name] if lm_path
+                      else launches[name]),
             main_path_launches=launches[name],
             silicon_launches=silicon["launches"][name],
             train_launches=train["launches"][name],
+            lm_launches=lm["launches"][name], lm=lm["kernels"].get(name),
             sampled_ms=r.get("sampled", {}).get(
                 "hg_cnn" if "conv" in name else "hg", {}).get("ms"),
             sampled=r.get("sampled"),
             equal=True, max_abs_err=max(
-                v["max_abs_err"] for v in r["per_model"].values()),
+                v["max_abs_err"] for v in [*r["per_model"].values(),
+                                           *lm["kernels"].get(name, [])]),
             ms=main["ms"], kernel_ms=main["ms"], call_ms=main["call_ms"],
             plain_ms=main["plain_ms"],
             bound_ms=main["bound_ms"], bound_by=main["bound_by"],

@@ -1,0 +1,21 @@
+"""llama3.2-1b [dense] — 16L d_model=2048 32H (GQA kv=8) d_ff=8192
+vocab=128256 — small llama3.  [hf:meta-llama/Llama-3.2-1B; unverified]
+
+head_dim=64 (2048/32); embeddings tied (as in the released model)."""
+
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="llama3.2-1b",
+    family="dense",
+    n_layers=16,
+    d_model=2048,
+    n_heads=32,
+    n_kv_heads=8,
+    d_ff=8192,
+    vocab_size=128256,
+    mlp_act="swiglu",
+    norm="rmsnorm",
+    rope_theta=500000.0,
+    tie_embeddings=True,
+)

@@ -76,3 +76,56 @@ def analog_params_from_jax(params: Any) -> AnalogParams:
     field."""
     return AnalogParams(**{f.name: float(getattr(params, f.name))
                            for f in dataclasses.fields(AnalogParams)})
+
+
+def _leaf_to_torch(a) -> torch.Tensor:
+    """A jax/numpy leaf -> a CPU tensor of the same dtype (bfloat16 by its
+    bit pattern: numpy has no bfloat16, torch reads its uint16 view)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).astype(np.int16)
+                                ).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def _flatten(tree, prefix: str = ""):
+    """Nested dicts -> [(dotted name, leaf)] in key order."""
+    for k, v in tree.items():
+        name = f"{prefix}{k}"
+        if isinstance(v, dict):
+            yield from _flatten(v, name + ".")
+        else:
+            yield name, v
+
+
+def lm_params_from_jax(tree, cfg) -> dict:
+    """The reference's LM parameter tree (`models.model.init_params`:
+    blocks stacked on a leading [blocks, ...] axis under `sub{i}` keys) ->
+    the port's `CausalLM` state dict: each block unstacked to
+    `blocks.{b}.sub{i}....`, every other leaf under its dotted path.
+    Load it with `CausalLM(cfg, device).load_state_dict(...)`.
+    """
+    state = {}
+    for name, leaf in _flatten({k: v for k, v in tree.items()
+                                if k != "blocks"}):
+        state[name] = _leaf_to_torch(leaf)
+    for name, leaf in _flatten(tree["blocks"]):
+        stacked = _leaf_to_torch(leaf)
+        if stacked.shape[0] != cfg.blocks:
+            raise ValueError(f"blocks.{name}: leading axis {stacked.shape[0]}"
+                             f" != {cfg.blocks} blocks")
+        for b in range(cfg.blocks):
+            state[f"blocks.{b}.{name}"] = stacked[b].clone()
+    return state
+
+
+def lm_cache_from_jax(cache, cfg, device=None) -> list:
+    """The reference's stacked decode cache ({sub{i}: {k, v, pos} or
+    {conv, h}}, each leaf [blocks, ...]) -> the port's list over blocks."""
+    out = [{} for _ in range(cfg.blocks)]
+    for sub, leaves in cache.items():
+        for k, leaf in leaves.items():
+            stacked = _leaf_to_torch(leaf)
+            for b in range(cfg.blocks):
+                out[b].setdefault(sub, {})[k] = stacked[b].to(device)
+    return out

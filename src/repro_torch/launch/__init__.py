@@ -1,0 +1,2 @@
+"""Launchers (port of `repro.launch`): the serving entry point
+(`python -m repro_torch.launch.serve`)."""

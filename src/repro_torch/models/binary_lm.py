@@ -1,0 +1,207 @@
+"""The paper's technique in the LM substrate (port of
+`repro/models/binary_lm.py`), on the port's kernels.
+
+  * ``binary_ffn`` -- BitLinear FFN projections: weights and activations
+    binarized to ±1 with XNOR-Net scale recovery (alpha = E|W| per output
+    channel, beta = E|x| per token).  With autograd off (serving) the ±1
+    product is kernel 1, `ops.binary_gemm_hd`, on packed sign bits:
+    dot = K - 2*HD, exact.  With autograd on it is the reference's
+    differentiable float ±1 product through `sign_ste` (training), which
+    is also the plain version the tests hold the packed route against.
+
+  * ``cam_head`` -- the PiC-BNN CAM-ensemble LM head for greedy decode:
+    the vocab projection replaced by Algorithm 1.  The final hidden
+    state's sign bits against every binarized vocab row: the votes
+    #{t : HD <= T_t} over the sweep are kernel 2, `ops.cam_vote`
+    ("votes"); the exact readout D - 2*HD is kernel 1 ("exact").
+
+Weight rows are packed once per loaded model (`packed_rows`, refreshed
+when a weight changes); activations are packed at each call, sign at 0
+-> +1 as in `sign_ste`.  On CPU tensors the kernels' wrappers take their
+plain versions.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.binarize import pack_bits, sign_ste
+from repro_torch.kernels import ops
+from repro_torch.models.layers import _normal_
+
+F32 = torch.float32
+
+
+def sign_bits(x: torch.Tensor) -> torch.Tensor:
+    """Packed sign bits along the last axis (x >= 0 -> 1, i.e. +1)."""
+    return pack_bits((x >= 0).to(torch.uint8))
+
+
+def _once(owner: nn.Module, name: str, w: torch.Tensor, make):
+    """`make(w)`, computed once per version of `w` and kept on `owner`.
+
+    Keyed by the tensor's storage, device and version counter, so loading
+    new weights (an in-place copy) or moving the model recomputes it.
+    """
+    cache = owner.__dict__.setdefault("_packed", {})
+    key = (w.data_ptr(), w.device, w._version)
+    hit = cache.get(name)
+    if hit is None or hit[0] != key:
+        with torch.no_grad():
+            hit = (key, make(w))
+        cache[name] = hit
+    return hit[1]
+
+
+def packed_rows(owner: nn.Module, name: str, w: torch.Tensor) -> torch.Tensor:
+    """`w`'s rows as packed sign bits, packed once per weight version."""
+    return _once(owner, name, w, sign_bits)
+
+
+# ---------------------------------------------------------------------------
+# BitLinear FFN
+# ---------------------------------------------------------------------------
+def _bit_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """sign(x) @ sign(w) with XNOR-Net scale recovery, differentiable.
+
+    x: [..., K] latent activations; w: [K, N] latent weights.  The
+    reference's float ±1 product: the plain version of `_bit_matmul_packed`
+    and the training form.
+    """
+    alpha = w.abs().mean(0)  # [N], in w's dtype
+    beta = x.abs().mean(-1, keepdim=True)  # [..., 1], in x's dtype
+    xb = sign_ste(x.to(F32))
+    wb = sign_ste(w.to(F32))
+    return (torch.matmul(xb, wb) * alpha * beta).to(x.dtype)
+
+
+def bitlinear_weights(owner: nn.Module, name: str):
+    """`owner.<name>` ([K, N] latent weights) as kernel 1 serves it: the
+    packed sign rows of w.T [N, K/32] and alpha = E|w| [N] in w's dtype,
+    computed once per weight version."""
+    return _once(owner, name, getattr(owner, name),
+                 lambda w: (sign_bits(w.t()), w.abs().mean(0)))
+
+
+def _bit_matmul_packed(owner: nn.Module, name: str,
+                       x: torch.Tensor) -> torch.Tensor:
+    """`_bit_matmul` at inference: the ±1 product from kernel 1 on packed
+    sign bits (K - 2*HD, exact), scaled as the reference scales it."""
+    rows, alpha = bitlinear_weights(owner, name)
+    beta = x.abs().mean(-1, keepdim=True)
+    *lead, k = x.shape
+    hd = ops.binary_gemm_hd(sign_bits(x.reshape(-1, k)), rows)
+    dot = (k - 2 * hd).to(F32).reshape(*lead, rows.shape[0])
+    return (dot * alpha * beta).to(x.dtype)
+
+
+def bitlinear_mlp(p: nn.Module, cfg: ModelConfig,
+                  h: torch.Tensor) -> torch.Tensor:
+    """Drop-in binary replacement for `layers.mlp` (same parameters).
+
+    Autograd off: every projection through kernel 1; on: the float ±1
+    form (`_bit_matmul`)."""
+    if torch.is_grad_enabled():
+        def bit(x, name):
+            return _bit_matmul(x, getattr(p, name))
+    else:
+        def bit(x, name):
+            return _bit_matmul_packed(p, name, x)
+    if cfg.mlp_act == "swiglu":
+        gate = bit(h, "w_gate")
+        up = bit(h, "w_up")
+        act = F.silu(gate.to(F32)).to(h.dtype) * up
+        return bit(act, "w_down")
+    act = F.gelu(bit(h, "w_in").to(F32), approximate="tanh").to(h.dtype)
+    return bit(act, "w_out")
+
+
+# ---------------------------------------------------------------------------
+# CAM-ensemble LM head (Algorithm 1 as the vocab projection)
+# ---------------------------------------------------------------------------
+class CamHead(nn.Module):
+    """rows [V, D] (the vocab rows, binarized at use) and the int32 [P]
+    threshold sweep (a buffer)."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.rows = nn.Parameter(torch.empty(
+            (cfg.vocab_size, cfg.d_model), dtype=cfg.torch_dtype,
+            device=device))
+        self.register_buffer("thresholds", torch.empty(
+            (cfg.cam_head_thresholds,), dtype=torch.int32, device=device))
+        self.cfg = cfg
+
+    def draw(self, generator: torch.Generator) -> None:
+        """rows normal x d_model^-0.5 in the model dtype; the sweep of
+        `cam_thresholds`."""
+        _normal_((self.rows,), self.rows.shape[1] ** -0.5, generator)
+        with torch.no_grad():
+            self.thresholds.copy_(cam_thresholds(self.cfg,
+                                                 self.thresholds.device))
+
+
+def cam_thresholds(cfg: ModelConfig, device=None) -> torch.Tensor:
+    """The sweep: cam_head_thresholds passes over center ± halfspan.
+
+    Centred on the majority point of a d_model-bit row; the reference
+    widens the paper's ±32 HD to bracket the best-matching row among V
+    candidates (extreme-value theory: min-HD over V ~Binomial(D, 1/2)
+    rows sits at center - sigma*sqrt(2 ln V), sigma = sqrt(D)/2, plus one
+    sigma of margin).  The rounding is `jnp.round(jnp.linspace(...))` in
+    float32: stop * (i / (n-1)) for i < n-1, then stop itself, ties to
+    even.
+    """
+    n_pass = cfg.cam_head_thresholds
+    center = cfg.d_model // 2
+    sigma = (cfg.d_model ** 0.5) / 2.0
+    halfspan = max(
+        int(sigma * (math.sqrt(2.0 * math.log(max(cfg.vocab_size, 2))) + 1.0)
+            + 0.5),
+        1,
+    )
+    stop = torch.tensor(float(2 * halfspan), dtype=F32)
+    if n_pass > 1:
+        div = n_pass - 1
+        steps = torch.arange(div, dtype=F32) / div
+        grid = torch.cat([stop * steps, stop[None]])
+    else:
+        grid = torch.zeros((n_pass,), dtype=F32)
+    t = center - halfspan + torch.round(grid).to(torch.int32)
+    return t.to(device)
+
+
+def cam_head_logits_pm1(p: CamHead, cfg: ModelConfig,
+                        h: torch.Tensor) -> torch.Tensor:
+    """The reference's form: a float ±1 product of the sign tensors, then
+    the HD compare.  Plain version of `cam_head_logits`."""
+    hb = torch.where(h >= 0, 1.0, -1.0).to(cfg.torch_dtype)
+    rb = torch.where(p.rows >= 0, 1.0, -1.0).to(cfg.torch_dtype)
+    dot = torch.matmul(hb.to(F32), rb.to(F32).t())  # [B, V]
+    if cfg.cam_head_mode == "exact":
+        return dot
+    hd = (cfg.d_model - dot) * 0.5
+    return (hd[..., None] <= p.thresholds.to(F32)).sum(-1).to(F32)
+
+
+def cam_head_logits(p: CamHead, cfg: ModelConfig,
+                    h: torch.Tensor) -> torch.Tensor:
+    """Greedy-decode 'logits' from the binary CAM match, on the kernels.
+
+    h: [B, D] final hidden states.  cfg.cam_head_mode:
+      "votes" -- Algorithm-1 vote counts #{t : HD <= T_t} (kernel 2,
+                 `ops.cam_vote`; purely binary measurements, no ADC);
+      "exact" -- the full-precision readout D - 2*HD (kernel 1,
+                 `ops.binary_gemm_hd`; the ADC/TDC baseline).
+    Output is float32 [B, V], so argmax/sampling is unchanged.
+    """
+    q = sign_bits(h)
+    rows = packed_rows(p, "rows", p.rows)
+    if cfg.cam_head_mode == "exact":
+        return (cfg.d_model - 2 * ops.binary_gemm_hd(q, rows)).to(F32)
+    return ops.cam_vote(q, rows, p.thresholds).to(F32)

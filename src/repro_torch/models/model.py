@@ -1,0 +1,297 @@
+"""The unified decoder-only model covering all ten architectures (port of
+`repro/models/model.py`, serving half).
+
+One definition, driven entirely by ModelConfig:
+  * dense / GQA transformers (stablelm, llama3.2, starcoder2, llama3-405b,
+    chameleon, musicgen)
+  * MoE transformers (mixtral, llama4-maverick)
+  * attention-free SSM (falcon-mamba)
+  * hybrid interleaves (jamba: 1 attn : 7 mamba, MoE every other layer)
+
+`CausalLM` holds `embed`, a `ModuleList` of blocks (each the config's
+LayerPattern superblock: `sub0`, `sub1`, ... sublayers), `final_norm`,
+`lm_head` unless the embeddings are tied, and `cam_head` when enabled:
+the reference's parameter tree with the stacked blocks unstacked.  The
+block stack is a Python loop in place of the reference's `lax.scan`.
+
+Entry points:
+  init_params                    -- CausalLM drawn from a torch.Generator
+  forward / final_hidden         -- [B, S] tokens -> [B, S, V] logits
+                                    (or the normed hidden states)
+  init_cache / prefill / decode  -- serving paths
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import binary_lm
+from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
+from repro_torch.pipeline import resolve_device
+
+F32 = torch.float32
+FULL_WINDOW = 1 << 30
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+class Sublayer(nn.Module):
+    """norm1 + attn (or mamba), then norm2 + ffn (dense MLP or MoE) on
+    attention sublayers and on hybrid mamba sublayers."""
+
+    def __init__(self, cfg: ModelConfig, kind: str, use_moe: bool, device):
+        super().__init__()
+        self.norm1 = L.Norm(cfg, device)
+        if kind == "attn":
+            self.attn = L.Attention(cfg, device)
+        elif kind == "mamba":
+            self.mamba = S.Mamba(cfg, device)
+        else:
+            raise ValueError(kind)
+        if kind == "attn" or cfg.family == "hybrid":
+            self.norm2 = L.Norm(cfg, device)
+            self.ffn = (L.MoE if use_moe else L.MLP)(cfg, device)
+
+
+class Block(nn.Module):
+    """One superblock: the sublayers `sub0` .. `sub{n-1}` of the pattern."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        pat = cfg.pattern()
+        for i in range(pat.size):
+            self.add_module(f"sub{i}", Sublayer(
+                cfg, pat.kinds[i], pat.moe_mask[i], device))
+
+
+class CausalLM(nn.Module):
+    """The model's parameters, uninitialised until `draw` (or a
+    `load_state_dict`, e.g. of `convert.lm_params_from_jax`).
+    `forward(tokens=..., embeds=...)` runs `model.forward` with the
+    model's own config.  `device` None means the CUDA card, raising when
+    there is none.
+    """
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        dev = resolve_device(device)
+        self.cfg = cfg
+        self.embed = L._param((cfg.vocab_size, cfg.d_model), cfg, dev)
+        self.blocks = nn.ModuleList(Block(cfg, dev)
+                                    for _ in range(cfg.blocks))
+        self.final_norm = L.Norm(cfg, dev)
+        if not cfg.tie_embeddings:
+            self.lm_head = L._param((cfg.d_model, cfg.vocab_size), cfg, dev)
+        if cfg.cam_head:
+            self.cam_head = binary_lm.CamHead(cfg, dev)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def draw(self, generator: torch.Generator) -> None:
+        """Every parameter from the reference's distributions: embed and
+        lm_head normal x d_model^-0.5, then each layer's own `draw`."""
+        L._normal_([self.embed] + ([self.lm_head] if hasattr(self, "lm_head")
+                                   else []),
+                   self.cfg.d_model ** -0.5, generator)
+        for m in self.modules():
+            if m is not self and hasattr(m, "draw"):
+                m.draw(generator)
+
+    def forward(self, tokens=None, embeds=None, positions=None,
+                collect_aux: bool = False):
+        return forward(self, self.cfg, tokens, embeds, positions,
+                       collect_aux)
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device=None) -> CausalLM:
+    """A CausalLM with the reference's distributions (`CausalLM.draw`),
+    drawn from `generator`, which must live on the target device.  The
+    draws differ from `jax.random`'s; they agree in distribution.
+    `device` None means the CUDA card (raising when there is none).
+    """
+    dev = resolve_device(device)
+    if generator.device.type != dev.type:
+        raise ValueError(f"generator on {generator.device}, parameters on "
+                         f"{dev}: draw with a generator on the target device")
+    model = CausalLM(cfg, dev)
+    model.draw(generator)
+    return model
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+def _run_sublayer(p: Sublayer, cfg: ModelConfig, kind: str, use_moe: bool,
+                  window: Optional[int], h, positions, inv_freq,
+                  cache: Optional[dict], cache_index, aux: Optional[dict]):
+    x = L.apply_norm(p.norm1, cfg, h)
+    if kind == "attn":
+        w = FULL_WINDOW if window is None else window
+        y, new_cache = L.attention(p.attn, cfg, x, positions, inv_freq,
+                                   window=w, cache=cache,
+                                   cache_index=cache_index)
+    else:
+        y, new_cache = S.mamba_block(p.mamba, cfg, x, cache=cache)
+    h = h + y
+    if hasattr(p, "ffn"):
+        x2 = L.apply_norm(p.norm2, cfg, h)
+        if use_moe:
+            y2 = L.moe(p.ffn, cfg, x2, aux=aux)
+        else:
+            y2 = L.mlp(p.ffn, cfg, x2)
+        h = h + y2
+    return h, new_cache
+
+
+def _stack(params: CausalLM, cfg: ModelConfig, h, positions, cache,
+           cache_index, collect_aux: bool):
+    """Run the block stack.  cache: a list of per-block dicts or None.
+    Returns (h, new cache or None, summed MoE aux loss)."""
+    inv_freq = L.rope_frequencies(cfg, h.device)
+    pat = cfg.pattern()
+    aux_sum = torch.zeros((), dtype=F32, device=h.device)
+    new_cache = [] if cache is not None else None
+    for b, block in enumerate(params.blocks):
+        aux = {"moe_aux": torch.zeros((), dtype=F32, device=h.device)} \
+            if collect_aux else None
+        block_cache = {}
+        for i in range(pat.size):
+            sub = f"sub{i}"
+            c = cache[b][sub] if cache is not None else None
+            h, nc = _run_sublayer(getattr(block, sub), cfg, pat.kinds[i],
+                                  pat.moe_mask[i], pat.windows[i], h,
+                                  positions, inv_freq, c, cache_index, aux)
+            if nc is not None:
+                block_cache[sub] = nc
+        if new_cache is not None:
+            new_cache.append(block_cache)
+        if collect_aux:
+            aux_sum = aux_sum + aux["moe_aux"]
+    return h, new_cache, aux_sum
+
+
+def _embed_in(params: CausalLM, cfg: ModelConfig, tokens, embeds):
+    if embeds is not None:
+        return embeds.to(cfg.torch_dtype)
+    return params.embed[tokens]
+
+
+def _lm_head(params: CausalLM, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return params.embed.t()
+    return params.lm_head
+
+
+def _logits(params: CausalLM, cfg: ModelConfig, h) -> torch.Tensor:
+    """[..., D] -> float32 [..., V] through the vocab projection."""
+    return torch.matmul(h, _lm_head(params, cfg)).to(F32)
+
+
+def final_hidden(params: CausalLM, cfg: ModelConfig, tokens=None,
+                 embeds=None, positions=None, collect_aux: bool = False):
+    """The normed final hidden states [B, S, D] of the whole sequence (what
+    the vocab projection or the CAM head reads), and the MoE aux loss."""
+    b, s = (tokens.shape if tokens is not None else embeds.shape[:2])
+    if positions is None:
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=params.device).expand(b, s)
+    h = _embed_in(params, cfg, tokens, embeds)
+    h, _, aux = _stack(params, cfg, h, positions, None, None, collect_aux)
+    return L.apply_norm(params.final_norm, cfg, h), aux
+
+
+def forward(params: CausalLM, cfg: ModelConfig, tokens=None, embeds=None,
+            positions=None, collect_aux: bool = False):
+    """Training-mode forward: (full-sequence float32 logits [B, S, V],
+    the summed MoE aux loss)."""
+    h, aux = final_hidden(params, cfg, tokens, embeds, positions,
+                          collect_aux)
+    return _logits(params, cfg, h), aux
+
+
+# ---------------------------------------------------------------------------
+# Serving: cache init / prefill / decode
+# ---------------------------------------------------------------------------
+def _attn_cache(cfg: ModelConfig, batch: int, max_len: int, window,
+                device) -> dict:
+    length = max_len if window is None else min(window, max_len)
+    shape = (batch, length, cfg.n_kv_heads, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
+        "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
+        "pos": torch.full((batch, length), -1, dtype=torch.int32,
+                          device=device),
+    }
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device=None) -> list:
+    """A list over blocks of {sub_i: cache}: attention sublayers hold
+    k/v [B, L, G, dh] and pos [B, L] (-1 = empty; L is max_len, capped at
+    the window), mamba sublayers their conv taps and float32 state.
+    `device` None means the CUDA card."""
+    pat = cfg.pattern()
+    device = resolve_device(device)
+
+    def one_block():
+        return {f"sub{i}": (_attn_cache(cfg, batch, max_len, pat.windows[i],
+                                        device)
+                            if pat.kinds[i] == "attn"
+                            else S.init_mamba_cache(cfg, batch, device=device))
+                for i in range(pat.size)}
+
+    return [one_block() for _ in range(cfg.blocks)]
+
+
+@torch.no_grad()
+def prefill(params: CausalLM, cfg: ModelConfig, tokens=None, embeds=None,
+            max_len: Optional[int] = None):
+    """Process the prompt; return (last-position logits [B, V], cache).
+
+    max_len sizes the cache (>= prompt length); decode steps beyond it
+    roll (window semantics).  Default: prompt length + 64 decode slots.
+    Autograd is off, so a BitLinear FFN runs on kernel 1.
+    """
+    b, s = (tokens.shape if tokens is not None else embeds.shape[:2])
+    dev = params.device
+    positions = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s)
+    cache = init_cache(cfg, b, max_len if max_len is not None else s + 64,
+                       dev)
+    h = _embed_in(params, cfg, tokens, embeds)
+    h, new_cache, _ = _stack(params, cfg, h, positions, cache, None, False)
+    h = L.apply_norm(params.final_norm, cfg, h[:, -1:, :])
+    return _logits(params, cfg, h)[:, 0], new_cache
+
+
+@torch.no_grad()
+def decode(params: CausalLM, cfg: ModelConfig, cache: list, tokens, pos: int):
+    """One decode step.
+
+    tokens: [B, 1] int (or embeds [B, 1, D] when cfg.embeds_input); pos:
+    the absolute position of the new token (uniform across the batch).
+    The cache is updated in place (the reference donates it) and
+    returned.  Returns (logits [B, V], cache): the CAM head's votes (or
+    exact readout) when cfg.cam_head, else the vocab projection.
+    """
+    if cfg.embeds_input and tokens.ndim == 3:
+        h = tokens.to(cfg.torch_dtype)
+    else:
+        h = params.embed[tokens]
+    b = h.shape[0]
+    positions = torch.full((b, 1), int(pos), dtype=torch.int32,
+                           device=h.device)
+    h, new_cache, _ = _stack(params, cfg, h, positions, cache, pos, False)
+    h = L.apply_norm(params.final_norm, cfg, h)
+    if cfg.cam_head:
+        return binary_lm.cam_head_logits(params.cam_head, cfg,
+                                         h[:, 0]), new_cache
+    return _logits(params, cfg, h)[:, 0], new_cache

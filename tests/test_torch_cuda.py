@@ -846,3 +846,60 @@ def test_binary_gemm_mxu_edges_equal_plain(dev, m, k, n):
     # leading dimensions, as the reference's dot_general takes them
     got3 = ops.binary_gemm_mxu(x.reshape(1, m, k).to(dev), w.to(dev))
     assert torch.equal(got3.cpu(), got.cpu().reshape(1, m, n))
+
+
+# ---------------------------------------------------------------------------
+# The LM serving path: BitLinear FFN on kernel 1, CAM head on kernel 2
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("b", [1, 4, 17, 32])
+@pytest.mark.parametrize("c,kw", [(128256, 64), (2048, 48), (50304, 80)])
+def test_cam_vote_at_vocab_scale_equals_plain(dev, b, c, kw):
+    """Kernel 2 at LM-head widths: vocabularies past the vote table's
+    2,048 entries and one block walking every row."""
+    from repro_torch.models.binary_lm import cam_thresholds
+    from repro_torch import configs
+
+    gen = torch.Generator(dev).manual_seed(c + b)
+    q = torch.randint(-2 ** 31, 2 ** 31, (b, kw), generator=gen, device=dev,
+                      dtype=torch.int64).to(torch.int32)
+    rows = torch.randint(-2 ** 31, 2 ** 31, (c, kw), generator=gen,
+                         device=dev, dtype=torch.int64).to(torch.int32)
+    cfg = dataclasses.replace(configs.get_config("llama3.2-1b+cam-head"),
+                              d_model=32 * kw, vocab_size=c)
+    thr = cam_thresholds(cfg, dev)
+    assert torch.equal(cam_search.cam_vote(q, rows, thr),
+                       cam_search.cam_vote_plain(q, rows, thr))
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b+binary-ffn+cam-head",
+                                  "llama3.2-1b+cam-head-exact",
+                                  "musicgen-medium+binary-ffn+cam-head"])
+def test_lm_serving_on_card_launches_kernels_and_equals_cpu(dev, arch):
+    """prefill + decode of a +smoke model (float32) on the card launch
+    kernel 1 (BitLinear, exact head) and kernel 2 (votes head), and give
+    the CPU's logits and votes on the same weights."""
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    from repro_torch.serve import steps
+
+    cfg = configs.get_config(arch.replace("+", "+smoke+", 1))
+    card = M.init_params(cfg, torch.Generator(dev).manual_seed(0))
+    cpu = M.CausalLM(cfg, "cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    key = "embeds" if cfg.embeds_input else "tokens"
+    rng = np.random.default_rng(1)
+    seq = (torch.from_numpy(rng.standard_normal((3, 9, cfg.d_model))
+                            .astype(np.float32)) if cfg.embeds_input
+           else torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, 9))))
+    binary_gemm.binary_gemm_hd.launches = cam_search.cam_vote.launches = 0
+    outs = {}
+    for name, model, d in (("card", card, dev), ("cpu", cpu, "cpu")):
+        lg, cache = steps.prefill_step(cfg, model, {key: seq[:, :8].to(d)})
+        dec, _ = steps.decode_step(cfg, model, cache, seq[:, 8:9].to(d), 8)
+        outs[name] = (lg.cpu(), dec.cpu())
+    assert binary_gemm.binary_gemm_hd.launches > 0 or not cfg.binary_ffn
+    votes = cfg.cam_head_mode == "votes"
+    assert (cam_search.cam_vote.launches > 0) == votes
+    np.testing.assert_allclose(outs["card"][0], outs["cpu"][0], atol=1e-4,
+                               rtol=1e-4)
+    assert torch.equal(outs["card"][1], outs["cpu"][1])

@@ -9,6 +9,8 @@ import sys
 import textwrap
 from pathlib import Path
 
+import pytest
+
 SRC = Path(__file__).resolve().parents[1] / "src"
 
 _PROBE = textwrap.dedent("""
@@ -59,3 +61,54 @@ def test_port_imports_no_jax_and_defaults_to_cuda():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "ISOLATED" in out.stdout
+
+
+_LM_PROBE = textwrap.dedent("""
+    import sys
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import binary_lm, layers, model, ssm
+    from repro_torch.serve import engine, steps
+
+    bad = sorted(m for m in sys.modules
+                 if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                 or m == "repro" or m.startswith("repro."))
+    assert not bad, bad
+    assert len(configs.list_archs()) == 10
+    cfg = configs.get_config("llama3.2-1b+smoke+cam-head")
+    if not torch.cuda.is_available():
+        params = model.init_params(cfg, torch.Generator(), device="cpu")
+        for entry in (lambda: model.init_params(cfg, torch.Generator()),
+                      lambda: model.CausalLM(cfg),
+                      lambda: engine.Engine(cfg, params,
+                                            engine.EngineConfig()),
+                      lambda: serve.main(["--requests", "1"])):
+            try:
+                entry()
+            except RuntimeError as e:
+                assert "CUDA" in str(e), e
+            else:
+                raise AssertionError("LM entry point ran without CUDA")
+    print("LM ISOLATED")
+""")
+
+
+def test_lm_port_imports_no_jax_and_defaults_to_cuda():
+    """The LM modules (configs, models, serve.engine/steps, launch.serve)
+    pull in no jax/repro; init_params, CausalLM, Engine and the serve
+    launcher default to the card and raise without one."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(SRC)
+    out = subprocess.run([sys.executable, "-c", _LM_PROBE], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LM ISOLATED" in out.stdout
+
+
+def test_launcher_refuses_model_parallel():
+    """--model-parallel > 1 needs the sharding layer the port lacks."""
+    from repro_torch.launch import serve
+
+    with pytest.raises(NotImplementedError, match="sharding"):
+        serve.main(["--model-parallel", "2", "--device", "cpu"])
