@@ -107,10 +107,31 @@ exit 0):
    projections: card == CPU.  Prefill ms, decode ms a token, tokens/s,
    and each kernel's device ms at the LM shapes beside its bound and the
    library's time, in a `{"lm": ...}` line.
-8. A `{"kernels": [...]}` line (launches on the kernel's path, on the
-   silicon, train and LM paths, error, times, sampled-form times, bound,
-   the LM-shape rows), then, as the last line, `{"ok": true, "device":
-   ...}`.
+8. LM training, with every launch counter set to 0 just before its
+   path: the reference's 100M example (custom-100m, float32, 300 steps
+   of 8 x 512 through `launch.train` with the Supervisor and a
+   checkpoint every 50 steps; the loss must fall), then llama3.2-1b+
+   binary-ffn at full width and depth (bf16, remat full, 10 steps of
+   8 x 256), served afterwards through `Engine.generate` (phase 7's
+   workload), which puts kernel 1 on the trained weights.  Kernel 1
+   must have launched, and no kernel inside the training steps (the
+   BitLinear training form is the float ±1 product, as the
+   reference's).  Checks: kernel 1 == plain == library at the trained
+   model's shapes; its tokens against teacher-forced decode and forward
+   (phase 7's rule); its forward as served (kernel 1 in all 16 blocks)
+   bit-equal to the float ±1 training form; one step of llama3.2-1b at
+   2 blocks in float32 at lr 3e-4, card against CPU (loss, grad norm,
+   every gradient, m and v leaf, the update where |g| >= 1e3 * eps);
+   EF-signSGD card against CPU and three compressed steps; mixtral-8x7b
+   (1 block) and falcon-mamba-7b (2 blocks) at full width, three steps
+   each; examples/ft_demo.py's scenario (failures at 13 and 27, a
+   straggler at 31-35) under deterministic algorithms, final state ==
+   the failure-free run's.  ms a step, tokens/s, peak memory and the
+   losses in an `{"lm_train": ...}` line.
+9. A `{"kernels": [...]}` line (launches on the kernel's path, on the
+   silicon, train, LM and LM-training paths, error, times, sampled-form
+   times, bound, the LM-shape rows), then, as the last line, `{"ok":
+   true, "device": ...}`.
 
 Without CUDA, or without the rest of the repository beside it, the script
 exits non-zero before printing any result.  It imports nothing of JAX.
@@ -118,7 +139,9 @@ exits non-zero before printing any result.  It imports nothing of JAX.
 
 from __future__ import annotations
 
+import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1262,6 +1285,29 @@ def vote_case(label, q, rows, thr):
             "float32 ±1 torch.matmul + compare")
 
 
+def bitlinear_cases(model, prompts) -> list:
+    """Kernel 1's cases at a BitLinear model's shapes (`gemm_case`): its
+    first FFN's w_gate and w_down projections at prefill (LM_BATCH x
+    LM_PROMPT tokens) and decode (LM_BATCH tokens), on the model's packed
+    rows and the embedded prompts (w_up has w_gate's shapes)."""
+    from repro_torch.models import binary_lm
+
+    ffn, cases = model.blocks[0].sub0.ffn, []
+    with torch.no_grad():
+        for label, m in (("prefill", LM_BATCH * LM_PROMPT),
+                         ("decode", LM_BATCH)):
+            x = model.embed[prompts.to(model.device)].reshape(
+                -1, model.cfg.d_model)[:m]
+            act = torch.nn.functional.silu(binary_lm._bit_matmul_packed(
+                ffn, "w_gate", x).float()).to(x.dtype) \
+                * binary_lm._bit_matmul_packed(ffn, "w_up", x)
+            for name, q in (("w_gate", x), ("w_down", act)):
+                rows = binary_lm.bitlinear_weights(ffn, name)[0]
+                cases.append(gemm_case(f"BitLinear {label} {name}",
+                                       binary_lm.sign_bits(q), rows))
+    return cases
+
+
 def lm_phase(dev, smi: str, card, counted, quick: bool) -> dict:
     """Phase 7: the LM serving path (`repro_torch.models`, `serve.engine`).
 
@@ -1345,21 +1391,11 @@ def lm_phase(dev, smi: str, card, counted, quick: bool) -> dict:
     # ---------------------------------- kernels at the LM path's shapes
     bl = params["llama3.2-1b+binary-ffn"]
     cam = params["llama3.2-1b+cam-head"]
-    ffn = bl.blocks[0].sub0.ffn
-    k1, k2 = [], []
+    k2 = []
     with torch.no_grad():
         prompts = torch.from_numpy(np.stack(
             [r.prompt for r in lm_requests(bl.cfg, SEED + 22)]))
-        for label, m in (("prefill", LM_BATCH * LM_PROMPT),
-                         ("decode", LM_BATCH)):
-            x = bl.embed[prompts.to(dev)].reshape(-1, bl.cfg.d_model)[:m]
-            act = torch.nn.functional.silu(binary_lm._bit_matmul_packed(
-                ffn, "w_gate", x).float()).to(x.dtype) \
-                * binary_lm._bit_matmul_packed(ffn, "w_up", x)
-            for name, q in (("w_gate", x), ("w_down", act)):  # w_up: w_gate's
-                rows = binary_lm.bitlinear_weights(ffn, name)[0]
-                k1.append(gemm_case(f"BitLinear {label} {name}",
-                                    binary_lm.sign_bits(q), rows))
+        k1 = bitlinear_cases(bl, prompts)
         # the CAM heads' queries: the sign bits of the final hidden state
         # at the last position of a generated sequence
         seq = torch.cat([prompts[:LM_BATCH].to(dev), torch.tensor(
@@ -1511,12 +1547,484 @@ def lm_phase(dev, smi: str, card, counted, quick: bool) -> dict:
                               max_new=LM_NEW, batch=LM_BATCH))
 
 
+# ------------------------------------------------------- LM training (8)
+# (a) the reference's 100M example: examples/lm_train.py --preset 100m
+TRAIN_100M = ["--arch", "custom-100m", "--steps", "300", "--batch", "8",
+              "--seq", "512", "--ckpt-every", "50", "--log-every", "50"]
+# (b) the main path: llama3.2-1b+binary-ffn at full width and depth
+TRAIN_MAIN = ["--arch", "llama3.2-1b+binary-ffn", "--steps", "10",
+              "--batch", "8", "--seq", "256", "--log-every", "5"]
+# (c) one step of llama3.2-1b, 2 blocks, float32 (TF32 off), card against
+# CPU, at the peak rate (lr 3e-4, no warmup): float32 sums in another
+# order; each leaf's gradients and m to 1e-4 of its largest, v (square in
+# g) to 2e-4.  The first AdamW step moves a parameter by
+# lr * (g / (|g| + eps) + wd * w), g clipped to norm 1: where |g| is near
+# eps that ratio of two rounding-level numbers differs between the sides
+# by up to ~0.2 (parameters 6.6e-5 apart, NVIDIA H100 80GB HBM3, 700 W),
+# so the update is compared where the clipped |g| >= 1e3 * eps, to 1e-5,
+# a thirtieth of lr: a skipped or doubled update differs there by ~lr.
+TRAIN_CPU_LOSS_RTOL, TRAIN_CPU_GNORM_RTOL, TRAIN_CPU_PARAM_ATOL = \
+    1e-5, 1e-4, 1e-5
+TRAIN_CPU_G_FLOOR = 1e3  # x eps: the update is compared above it
+# (e) examples/ft_demo.py: 40 steps, checkpoints every 10, failures at
+# calls 13 and 27, a straggler (0.8 s more) at calls 31-35
+FT_STEPS, FT_EVERY, FT_FAIL, FT_SLOW = 40, 10, (13, 27), range(31, 36)
+
+
+def step_stats(step_s, tokens_per_step) -> dict:
+    """ms a step and tokens/s over the steps after the first (the first
+    loads the libraries and sizes the allocator), and the first's ms."""
+    rest = step_s[1:] or step_s
+    ms = float(np.mean(rest)) * 1e3
+    return dict(steps=len(step_s), ms_per_step=ms, first_step_ms=step_s[0]
+                * 1e3, steps_per_s=1e3 / ms,
+                tokens_per_s=tokens_per_step * 1e3 / ms)
+
+
+def peak_gb(dev) -> float:
+    return (torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda"
+            else None)
+
+
+def reset_peak(dev) -> None:
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def step_split(out: dict, batch: int, seq: int) -> dict:
+    """Where a trained state's step goes (three more updates of it): ms of
+    `loss_and_grads` and of `apply_updates`, each on its own between
+    synchronisations, then one `torch.profiler` pass over a whole
+    `train_step` (device-kernel ms against the rest; the top kernels)."""
+    from repro_torch.launch.train import make_batch_iter
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.train_step import loss_and_grads, train_step
+
+    cfg, tcfg, state = out["cfg"], out["tcfg"], out["state"]
+    b = next(make_batch_iter(cfg, batch, seq, 0))
+    dev = state["params"].device
+    sync(dev)
+    t0 = time.perf_counter()
+    _, grads, _ = loss_and_grads(cfg, tcfg, state["params"], b)
+    sync(dev)
+    t1 = time.perf_counter()
+    O.apply_updates(tcfg.opt, state["params"], grads, state["opt"])
+    sync(dev)
+    t2 = time.perf_counter()
+    del grads
+    prof = profile_split(lambda: train_step(cfg, tcfg, state, b), iters=1)
+    prof["kernels"] = dict(list(prof["kernels"].items())[:8])
+    return dict(loss_and_grads_ms=(t1 - t0) * 1e3,
+                apply_updates_ms=(t2 - t1) * 1e3, profile=prof)
+
+
+def served_tokens_check(cfg, model, res, tol) -> dict:
+    """The engine's tokens (phase 7's workload) against the same model:
+    equal to the teacher-forced decode argmax everywhere, and to
+    `forward`'s argmax where its top-2 margin exceeds 2 * tol; decode vs
+    forward logits within tol.  Then `forward` as served (autograd off:
+    every BitLinear projection on kernel 1, from the trained weights'
+    packed signs) against the training form (autograd on: the float ±1
+    product of the latent weights): the ±1 dot products are exact in
+    both and scaled in the same order, so the logits must be bit-equal."""
+    from repro_torch.models import model as M
+
+    reqs = lm_requests(cfg, SEED + 22)
+    worst, sure_n, sure_all, n_equal = 0.0, 0, 0, 0
+    for i in range(0, LM_REQUESTS, LM_BATCH):
+        with torch.no_grad():
+            toks = torch.tensor([r.tokens for r in res[i:i + LM_BATCH]],
+                                device=model.device)
+            seq = torch.cat([torch.from_numpy(np.stack(
+                [r.prompt for r in reqs[i:i + LM_BATCH]])).to(model.device),
+                toks[:, :-1]], 1)
+            tf, fw = decode_and_forward(cfg, model, seq)
+        require(bool(torch.isfinite(tf).all()), f"{cfg.name}: decode "
+                "logits not finite")
+        require(torch.equal(tf.argmax(-1), toks),
+                f"{cfg.name}: engine tokens != teacher-forced argmax")
+        top2 = fw.topk(2, -1).values
+        sure = (top2[..., 0] - top2[..., 1]) > 2 * tol
+        require(torch.equal(fw.argmax(-1)[sure], toks[sure]),
+                f"{cfg.name}: greedy tokens != forward's argmax where "
+                f"the margin exceeds {2 * tol}")
+        worst = max(worst, float((tf - fw).abs().max()))
+        sure_n += int(sure.sum())
+        sure_all += sure.numel()
+        with torch.enable_grad():
+            fw_train = M.forward(model, cfg, tokens=seq)[0][
+                :, LM_PROMPT - 1:].detach()
+        require(torch.equal(fw, fw_train), f"{cfg.name}: served forward "
+                "(kernel 1) != the float ±1 training form, max |dlogit| "
+                f"{float((fw - fw_train).abs().max()):.3e}")
+        n_equal += fw.shape[0] * fw.shape[1]
+        del fw_train
+    require(worst <= tol, f"{cfg.name}: decode vs forward max |dlogit| "
+            f"{worst:.4f} > {tol}")
+    return dict(decode_vs_forward_max_abs=worst, tol=tol,
+                tokens_checked_vs_forward=sure_n, tokens=sure_all,
+                served_vs_train_form_equal_positions=n_equal)
+
+
+def lm_train_phase(dev, smi: str, card, counted, quick: bool) -> dict:
+    """Phase 8: LM training (`repro_torch.train`, `ft`, `launch.train`).
+
+    With every launch count set to 0 just before the path: (a) the
+    reference's 100M example, custom-100m (float32, 12 layers, d 768,
+    V 32,000) for 300 steps of batch 8 x 512 tokens through
+    `launch.train` with --ckpt-dir (the Supervisor, an async checkpoint
+    every 50 steps); (b) llama3.2-1b+binary-ffn at full width and depth
+    (bf16, remat full) for 10 steps of 8 x 256 through `launch.train`,
+    then served through `Engine.generate` (phase 7's workload), which
+    puts kernel 1 on the trained weights.  Kernel 1 must have launched;
+    the training steps themselves launch no kernel (the BitLinear
+    training form is the float ±1 product, as the reference's).  Then:
+    kernel 1 == plain == library at the trained model's shapes; its
+    tokens against teacher-forced decode and forward, and its served
+    forward bit-equal to the training form; (c) one step of
+    llama3.2-1b at 2 blocks in float32, card against CPU; (d) mixtral-
+    8x7b (1 block) and falcon-mamba-7b (2 blocks) at full width, 3 steps
+    each; (e) examples/ft_demo.py's scenario under the Supervisor with
+    deterministic algorithms, final state == the failure-free run's; (f)
+    EF-signSGD: 3 steps with compression, and `compress_with_feedback`
+    card against CPU.  `quick` (a CPU rehearsal) takes `+smoke` configs
+    and fewer steps."""
+    import dataclasses
+    import shutil
+
+    from repro_torch import configs
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.data.tokens import DataConfig, synthetic_stream
+    from repro_torch.ft import (Supervisor, SupervisorConfig, failing_step,
+                                slow_step)
+    from repro_torch.launch import train as launch
+    from repro_torch.models import model as M
+    from repro_torch.train import TrainConfig, init_train_state
+    from repro_torch.train import grad_compress as G
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.train_step import loss_and_grads, make_train_step
+
+    on_card = dev.type == "cuda"
+    here = [] if on_card else ["--device", str(dev)]
+    t_phase = time.perf_counter()
+    ckpt_root = Path(__file__).resolve().parent / "build" / "lm_train_ckpt"
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    runs = {}
+
+    def train_run(key, argv):
+        if quick:  # a CPU rehearsal: smoke widths, a few short steps
+            argv = [("llama3.2-1b+smoke" + ("+binary-ffn" if "binary" in a
+                                             else "")) if a.startswith(
+                ("custom", "llama")) else a for a in argv]
+            for flag, val in (("--steps", "6"), ("--seq", "32"),
+                              ("--ckpt-every", "3"), ("--log-every", "3")):
+                if flag in argv:
+                    argv[argv.index(flag) + 1] = val
+        reset_peak(dev)
+        t0 = time.perf_counter()
+        out = launch.run(argv + here)
+        wall = time.perf_counter() - t0
+        a = launch.parse_args(argv)
+        losses = out["losses"]
+        require(all(np.isfinite(losses)), f"{key}: loss not finite")
+        runs[key] = dict(
+            arch=out["cfg"].name, dtype=out["cfg"].dtype,
+            remat=out["cfg"].remat, batch=a.batch, seq=a.seq,
+            params=sum(p.numel() for p in out["state"]["params"]
+                       .parameters()),
+            **step_stats(out["step_s"], a.batch * a.seq),
+            wall_s=wall, peak_gb=peak_gb(dev), first_loss=losses[0],
+            last_loss=losses[-1], losses=losses[::max(len(losses) // 30, 1)],
+            ckpt_every=a.ckpt_every if a.ckpt_dir else None, card=smi)
+        r = runs[key]
+        print(f"  {key}: {r['arch']} {r['params'] / 1e6:.1f} M params, "
+              f"{r['steps']} steps of {a.batch} x {a.seq}: "
+              f"{r['ms_per_step']:.2f} ms a step ({r['steps_per_s']:.2f} "
+              f"steps/s, {r['tokens_per_s']:.0f} tokens/s; first step "
+              f"{r['first_step_ms']:.0f} ms), peak {r['peak_gb']} GB, loss "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f}; {smi}")
+        return out
+
+    def split(key, out):  # after the run's checks: it updates the state
+        sp = runs[key]["split"] = step_split(out, runs[key]["batch"],
+                                             runs[key]["seq"])
+        print(f"    {key}, a step apart: loss_and_grads "
+              f"{sp['loss_and_grads_ms']:.1f} ms, apply_updates "
+              f"{sp['apply_updates_ms']:.1f} ms; profiled step "
+              f"{sp['profile']['call_ms']:.1f} ms, device kernels "
+              f"{sp['profile']['device_kernel_ms']:.1f} ms")
+
+    # --------------------------- the LM training path, counts from 0
+    for fn in counted:
+        fn.launches = 0
+    out = train_run("a_custom_100m", TRAIN_100M + [
+        "--ckpt-dir", str(ckpt_root / "a")])
+    require(ckpt.latest_step(ckpt_root / "a") == (6 if quick else 300),
+            "custom-100m: no checkpoint of the last step")
+    tenth = max(len(out["losses"]) // 10, 1)  # the launcher's own verdict
+    first, last = np.mean(out["losses"][:tenth]), np.mean(
+        out["losses"][-tenth:])
+    require(last < first or quick, f"custom-100m: loss {first:.4f} -> "
+            f"{last:.4f} did not fall")
+    split("a_custom_100m", out)
+    del out
+    out = train_run("b_llama3.2-1b+binary-ffn", list(TRAIN_MAIN))
+    sync(dev)
+    train_launches = {fn.__name__: fn.launches for fn in counted}
+    model, cfg = out["state"]["params"], out["cfg"]
+    res, serve = lm_engine_run(cfg, model, SEED + 22, dev, on_card)
+    sync(dev)
+    launches = {fn.__name__: fn.launches for fn in counted}
+    print(f"LM training path: launches {launches} (the training steps "
+          f"alone: {train_launches})")
+    require(launches["binary_gemm_hd"] > 0 or not on_card,
+            "binary_gemm_hd was not launched serving the trained model")
+    require(not any(train_launches.values()),
+            "a kernel launched inside the training steps")
+    print(f"  served after training: prefill {serve['prefill_ms']:.2f} ms, "
+          f"decode {serve['decode_ms_per_token']:.3f} ms/token, "
+          f"{serve['tokens_per_s']:.1f} tokens/s; {smi}")
+
+    # --------------- kernel 1 on the trained weights, the served tokens
+    prompts = torch.from_numpy(np.stack(
+        [r.prompt for r in lm_requests(cfg, SEED + 22)]))
+    k1 = lm_kernel_rows(card, "binary_gemm_hd", bitlinear_cases(model,
+                                                                prompts))
+    served = served_tokens_check(cfg, model, res, LM_ATOL_BITLINEAR)
+    print(f"  trained {cfg.name}: engine tokens == teacher-forced argmax; "
+          f"== forward argmax at {served['tokens_checked_vs_forward']}/"
+          f"{served['tokens']} positions past the margin; decode vs forward "
+          f"max |dlogit| {served['decode_vs_forward_max_abs']:.4f} (tol "
+          f"{LM_ATOL_BITLINEAR}); served forward (kernel 1) == the float "
+          f"±1 training form, bit for bit, at "
+          f"{served['served_vs_train_form_equal_positions']} positions")
+    split("b_llama3.2-1b+binary-ffn", out)
+    del out, model, res
+    reset_peak(dev)
+
+    def cut(name, **kw):  # full width; depth cut where asked
+        return dataclasses.replace(
+            configs.get_config(name + ("+smoke" if quick else "")), **kw)
+
+    def data(cfg, b, s):
+        return synthetic_stream(DataConfig(batch=b, seq_len=s,
+                                           vocab_size=cfg.vocab_size))
+
+    dev_kw = {} if on_card else {"device": dev}
+    gen = torch.Generator(dev).manual_seed(SEED + 31)
+
+    # ------------------------------ (c) one step, card against the CPU
+    cfg32 = cut("llama3.2-1b", n_layers=2, dtype="float32")
+    tcfg = TrainConfig(opt=O.OptimizerConfig(warmup_steps=0))  # lr 3e-4
+    card_state = init_train_state(cfg32, tcfg, gen, **dev_kw)
+    cpu_model = M.CausalLM(cfg32, "cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in
+                               card_state["params"].state_dict().items()})
+    cpu_state = {"params": cpu_model,
+                 "opt": O.init_opt_state(tcfg.opt, cpu_model)}
+    before = {k: p.detach().cpu().clone() for k, p in
+              cpu_model.named_parameters()}
+    batch = next(data(cfg32, 2, 64))
+    step = {}  # train_step's body, each side's gradients kept
+    for side, st in (("card", card_state), ("cpu", cpu_state)):
+        loss, grads, _ = loss_and_grads(cfg32, tcfg, st["params"], batch)
+        _, _, om = O.apply_updates(tcfg.opt, st["params"], grads, st["opt"])
+        step[side] = (float(loss), grads, float(om["grad_norm"]))
+    (loss, grads, gnorm), (loss_cpu, grads_cpu, gnorm_cpu) = \
+        step["card"], step["cpu"]
+    loss_rel = abs(loss / loss_cpu - 1)
+    gnorm_rel = abs(gnorm / gnorm_cpu - 1)
+
+    def rel(card_tree, cpu_tree):  # max |d| / max |cpu| of each leaf
+        return {k: float((t.cpu() - cpu_tree[k]).abs().max()
+                         / cpu_tree[k].abs().max().clamp_min(1e-30))
+                for k, t in card_tree.items()}
+
+    grad_rel = rel(grads, grads_cpu)
+    m_rel = rel(card_state["opt"]["m"], cpu_state["opt"]["m"])
+    v_rel = rel(card_state["opt"]["v"], cpu_state["opt"]["v"])
+    lr = float(O.schedule(tcfg.opt, torch.ones((), dtype=torch.int32)))
+    g_floor = TRAIN_CPU_G_FLOOR * tcfg.opt.eps
+    param_err, n_cmp, n_all = {}, 0, 0
+    for k, p in card_state["params"].named_parameters():
+        # the clipped gradient Adam saw: m = (1 - b1) * g at step 1
+        g_hat = cpu_state["opt"]["m"][k].abs() / (1 - tcfg.opt.b1)
+        sure = g_hat >= g_floor
+        d_card = p.detach().cpu() - before[k]
+        d_cpu = cpu_model.get_parameter(k).detach() - before[k]
+        param_err[k] = float((d_card - d_cpu)[sure].abs().max()) if bool(
+            sure.any()) else 0.0
+        n_cmp += int(sure.sum())
+        n_all += sure.numel()
+    worst_g, worst_m, worst_v, worst_p = (max(d, key=d.get) for d in (
+        grad_rel, m_rel, v_rel, param_err))
+    require(loss_rel <= TRAIN_CPU_LOSS_RTOL, f"train step card vs CPU: loss "
+            f"rel {loss_rel:.2e} > {TRAIN_CPU_LOSS_RTOL}")
+    require(gnorm_rel <= TRAIN_CPU_GNORM_RTOL, f"train step card vs CPU: "
+            f"grad norm rel {gnorm_rel:.2e} > {TRAIN_CPU_GNORM_RTOL}")
+    for what, d, worst, tol in (("gradient", grad_rel, worst_g, 1),
+                                ("m", m_rel, worst_m, 1),
+                                ("v", v_rel, worst_v, 2)):
+        require(d[worst] <= tol * TRAIN_CPU_GNORM_RTOL, f"train step card "
+                f"vs CPU: {worst} {what} max |d| / max |cpu| {d[worst]:.2e}"
+                f" > {tol * TRAIN_CPU_GNORM_RTOL}")
+    require(n_cmp > 0, "train step card vs CPU: no element's |g| reaches "
+            f"{g_floor:.0e}")
+    require(param_err[worst_p] <= TRAIN_CPU_PARAM_ATOL, f"train step card vs "
+            f"CPU: {worst_p} update max |d| {param_err[worst_p]:.2e} > "
+            f"{TRAIN_CPU_PARAM_ATOL} (lr {lr:.1e})")
+    card_vs_cpu = dict(loss_rel=loss_rel, grad_norm_rel=gnorm_rel,
+                       grad_max_rel=grad_rel[worst_g], grad_worst=worst_g,
+                       m_max_rel=m_rel[worst_m], v_max_rel=v_rel[worst_v],
+                       update_max_abs=param_err[worst_p],
+                       update_worst=worst_p, update_elements=n_cmp,
+                       elements=n_all, loss=loss, grad_norm=gnorm, lr=lr)
+    print(f"  llama3.2-1b, 2 blocks, float32, one step card vs CPU: loss "
+          f"rel {loss_rel:.2e}, grad norm rel {gnorm_rel:.2e}, max |d| / "
+          f"max |cpu|: gradients {grad_rel[worst_g]:.2e} ({worst_g}), m "
+          f"{m_rel[worst_m]:.2e}, v {v_rel[worst_v]:.2e}; update max |d| "
+          f"{param_err[worst_p]:.2e} ({worst_p}; lr {lr:.1e}) at "
+          f"{n_cmp}/{n_all} elements where |g| >= {g_floor:.0e} (tols "
+          f"{TRAIN_CPU_LOSS_RTOL}, {TRAIN_CPU_GNORM_RTOL}, "
+          f"{TRAIN_CPU_GNORM_RTOL} (v {2 * TRAIN_CPU_GNORM_RTOL}), "
+          f"{TRAIN_CPU_PARAM_ATOL})")
+
+    # ------------- (f) EF-signSGD on the same model: feedback, the hook
+    res0 = G.init_residual(card_state["params"])
+    hat, res1 = G.compress_with_feedback(grads, res0)
+    hat_cpu, res_cpu = G.compress_with_feedback(
+        {k: g.cpu() for k, g in grads.items()},
+        {k: r.cpu() for k, r in res0.items()})
+    for k in hat:
+        require(torch.equal(torch.sign(hat[k].cpu()), torch.sign(
+            hat_cpu[k])), f"EF-signSGD {k}: card bits != CPU bits")
+        require(torch.allclose(hat[k].cpu(), hat_cpu[k], rtol=1e-5,
+                               atol=0) and torch.allclose(
+            res1[k].cpu(), res_cpu[k], rtol=1e-5, atol=1e-9),
+            f"EF-signSGD {k}: card scale / residual != CPU")
+    del cpu_state, cpu_model, before, step, grads, grads_cpu, hat, res0, \
+        res1, hat_cpu, res_cpu
+    ccfg = dataclasses.replace(tcfg, compression=G.CompressionConfig(
+        enabled=True))
+    it = data(cfg32, 2, 64)
+    comp_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        card_state, m = make_train_step(cfg32, ccfg)(card_state, next(it))
+        require(bool(torch.isfinite(m["loss"])) and float(m["compressed"])
+                == 1.0, "compressed train step: loss not finite or "
+                "compression off")
+        sync(dev)
+        comp_s.append(time.perf_counter() - t0)
+    ef = dict(**step_stats(comp_s, 2 * 64), loss=float(m["loss"]),
+              compression_ratio=G.compression_ratio(card_state["params"]))
+    print(f"  EF-signSGD: compress_with_feedback card == CPU (bits; scale "
+          f"and residual to 1e-5); 3 compressed steps, "
+          f"{ef['ms_per_step']:.1f} ms a step; wire ratio "
+          f"{ef['compression_ratio']:.1f}x")
+    del card_state
+    reset_peak(dev)
+
+    # ------------------------------- (d) MoE and Mamba at full width
+    wide = {}
+    for key, c, b, s in (
+            ("mixtral-8x7b/1", cut("mixtral-8x7b", n_layers=1), 4, 128),
+            ("falcon-mamba-7b/2", cut("falcon-mamba-7b", n_layers=2), 4,
+             128)):
+        reset_peak(dev)
+        st = init_train_state(c, TrainConfig(), gen, **dev_kw)
+        fn, it = make_train_step(c, TrainConfig()), data(c, b, s)
+        times, ms = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            st, m = fn(st, next(it))
+            ms.append({k: float(v) for k, v in m.items()})
+            times.append(time.perf_counter() - t0)
+        require(all(np.isfinite(x["loss"]) for x in ms), f"{key}: loss not "
+                "finite")
+        require((ms[-1]["moe_aux"] > 0) == (c.n_experts > 0),
+                f"{key}: moe_aux {ms[-1]['moe_aux']}")
+        wide[key] = dict(params=sum(p.numel() for p in st["params"]
+                                    .parameters()),
+                         **step_stats(times, b * s), peak_gb=peak_gb(dev),
+                         losses=[x["loss"] for x in ms],
+                         moe_aux=ms[-1]["moe_aux"], batch=b, seq=s)
+        w = wide[key]
+        print(f"  {key}: {w['params'] / 1e9:.2f} B params, 3 steps of {b} x "
+              f"{s}: {w['ms_per_step']:.1f} ms a step, peak {w['peak_gb']} "
+              f"GB, losses {[round(x, 4) for x in w['losses']]}, moe_aux "
+              f"{w['moe_aux']:.4f}; {smi}")
+        del st, fn
+    reset_peak(dev)
+
+    # ------------------ (e) examples/ft_demo.py's scenario on the card
+    ft_cfg = configs.get_config("llama3.2-1b+smoke")
+    ft_tcfg = TrainConfig()
+
+    def ft_run(tag, faulty):
+        state = init_train_state(ft_cfg, ft_tcfg, torch.Generator(
+            dev).manual_seed(SEED + 41), **dev_kw)
+        step = make_train_step(ft_cfg, ft_tcfg)
+        if faulty:
+            step = slow_step(failing_step(step, FT_FAIL), FT_SLOW, 0.8)
+        alerts = []
+
+        def make_data(start):
+            it = data(ft_cfg, 4, 32)
+            for _ in range(start):
+                next(it)
+            return it
+
+        sup = Supervisor(SupervisorConfig(
+            ckpt_dir=ckpt_root / f"e_{tag}", ckpt_every=FT_EVERY,
+            backoff_s=0.0, straggler_z=3.0, straggler_patience=2),
+            step, make_data, state, on_straggler=alerts.append)
+        return sup, sup.run(state, FT_STEPS), alerts
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        _, clean, _ = ft_run("clean", False)
+        sup, faulted, alerts = ft_run("flaky", True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    equal = all(torch.equal(x, y) for (_, x), (_, y) in zip(
+        ckpt.leaf_paths(clean), ckpt.leaf_paths(faulted)))
+    require(equal, "ft demo: final state != the failure-free run's")
+    require(sup.restarts == len(FT_FAIL), f"ft demo: {sup.restarts} "
+            "restarts")
+    require(bool(alerts), "ft demo: the straggler raised no alert")
+    ft = dict(restarts=sup.restarts, straggler_alerts=len(alerts),
+              alerts=alerts, steps_run=len(sup.history),
+              final_loss=sup.history[-1]["loss"], equal_to_clean=equal)
+    print(f"  ft demo: {sup.restarts} restarts, {len(alerts)} straggler "
+          f"alerts (steps {[a['step'] for a in alerts]}, "
+          f"{[round(a['dt'], 3) for a in alerts]} s against means "
+          f"{[round(a['mean'], 4) for a in alerts]} s), {len(sup.history)} "
+          "steps run; final state == failure-free run's (deterministic "
+          "algorithms)")
+    del clean, faulted
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    reset_peak(dev)
+    phase_s = time.perf_counter() - t_phase
+    print(f"LM training phase: {phase_s:.1f} s")
+    return dict(launches=launches, train_step_launches=train_launches,
+                runs=runs, served_after_training=dict(**serve, **served),
+                kernels=dict(binary_gemm_hd=k1), card_vs_cpu=card_vs_cpu,
+                ef_signsgd=ef, wide=wide, ft_demo=ft, phase_s=phase_s,
+                card=smi)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check needs the card",
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    # cuBLAS's deterministic workspace, read when its handle is made:
+    # phase 8 runs the fault-tolerance demo with deterministic algorithms
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     from repro_torch.kernels import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1556,7 +2064,7 @@ def main() -> int:
 
 def run(dev: torch.device, b_main: int, batches, card: Card,
         smi: str) -> list:
-    """Phases 2-4 on `dev`; returns the kernels line's entries.
+    """Phases 2-8 on `dev`; returns the kernels line's entries.
 
     Called with the card by `main`; a CPU rehearsal may call it with
     device "cpu" and small batches (every kernel then takes its plain
@@ -1872,6 +2380,10 @@ def run(dev: torch.device, b_main: int, batches, card: Card,
     lm = lm_phase(dev, smi, card, counted, quick=not on_card)
     print(json.dumps({"lm": lm}))
 
+    # ---------------------------------------- LM training (phase 8)
+    lm_train = lm_train_phase(dev, smi, card, counted, quick=not on_card)
+    print(json.dumps({"lm_train": lm_train}))
+
     # ------------------------------------------------------------ summary
     line = []
     for name, r in report.items():
@@ -1894,6 +2406,7 @@ def run(dev: torch.device, b_main: int, batches, card: Card,
             silicon_launches=silicon["launches"][name],
             train_launches=train["launches"][name],
             lm_launches=lm["launches"][name], lm=lm["kernels"].get(name),
+            lm_train_launches=lm_train["launches"][name],
             sampled_ms=r.get("sampled", {}).get(
                 "hg_cnn" if "conv" in name else "hg", {}).get("ms"),
             sampled=r.get("sampled"),

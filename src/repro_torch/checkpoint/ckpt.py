@@ -9,7 +9,11 @@ Layout (one directory per step), the reference's own:
         <leaf-path>.npy    — one file per leaf
 
 A tree is nested dicts and lists (tuples) of arrays: numpy arrays, or
-torch tensors on any device, saved from a host copy.  A leaf's path joins
+torch tensors on any device, saved from a host copy; a module (an
+`nn.Module`, e.g. a train state's `CausalLM`) stands for its
+`state_dict()`.  A bfloat16 leaf (numpy has no bfloat16) is stored by
+its 16-bit pattern as uint16 with "bfloat16" in the manifest, as the
+reference's leaves of that dtype are named.  A leaf's path joins
 its dict keys and list indices with "/" (dict keys in sorted order, as
 `jax.tree_util` flattens them); its file name replaces each "/" with
 "__".  A save writes into `.step_XXXXXXXX.tmp-<nonce>/`, syncs it, then
@@ -20,7 +24,8 @@ package loads in the other.
 `AsyncCheckpointer.save_async` copies the tree to host memory when it is
 called and writes it on a thread, so training goes on while the files
 are written.  `restore` places the leaves on `device=` where the
-reference takes device shardings.
+reference takes device shardings; `load_into` writes a restored tree
+into live tensors and modules in place.
 """
 
 from __future__ import annotations
@@ -36,32 +41,55 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 
-def _leaf_paths(tree, prefix: tuple = ()) -> list[tuple[str, Any]]:
+def leaf_paths(tree, prefix: tuple = ()) -> list[tuple[str, Any]]:
+    """[(path, leaf)] of a tree, dict keys in sorted order."""
+    if isinstance(tree, nn.Module):
+        tree = tree.state_dict()
     if isinstance(tree, dict):
         out = []
         for k in sorted(tree):
-            out += _leaf_paths(tree[k], prefix + (str(k),))
+            out += leaf_paths(tree[k], prefix + (str(k),))
         return out
     if isinstance(tree, (list, tuple)):
         out = []
         for i, v in enumerate(tree):
-            out += _leaf_paths(v, prefix + (str(i),))
+            out += leaf_paths(v, prefix + (str(i),))
         return out
     return [("/".join(prefix), tree)]
 
 
-def _host_copy(leaf) -> np.ndarray:
-    """A leaf as a numpy array that nothing else writes: a tensor is
-    copied off its device (and a CPU tensor copied too, since `.numpy()`
-    shares its memory with the next in-place update)."""
+def _host_copy(leaf):
+    """A leaf as a host copy that nothing else writes: a tensor copied
+    off its device into a CPU tensor (a CPU tensor copied too, since it
+    shares its memory with the next in-place update), else a numpy
+    array."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy().copy()
+        return leaf.detach().to("cpu", copy=True)
     return np.array(leaf)
 
 
+def _npy(leaf) -> tuple[np.ndarray, str]:
+    """A leaf as the array written to its file and the manifest's dtype:
+    bfloat16 (a tensor, or ml_dtypes' in a reference tree) as its uint16
+    bit pattern."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
+        arr = t.numpy()
+    else:
+        arr = np.asarray(leaf)
+    if arr.dtype.name == "bfloat16":
+        return arr.view(np.uint16), "bfloat16"
+    return arr, str(arr.dtype)
+
+
 def _rebuild(tree, values: dict, prefix: tuple = ()):
+    if isinstance(tree, nn.Module):
+        tree = tree.state_dict()
     if isinstance(tree, dict):
         return {k: _rebuild(v, values, prefix + (str(k),))
                 for k, v in tree.items()}
@@ -69,6 +97,34 @@ def _rebuild(tree, values: dict, prefix: tuple = ()):
         return type(tree)(_rebuild(v, values, prefix + (str(i),))
                           for i, v in enumerate(tree))
     return values["/".join(prefix)]
+
+
+def snapshot(tree):
+    """The tree with every leaf copied to host memory (`_host_copy`), a
+    module as its state dict."""
+    return _rebuild(tree, {name: _host_copy(leaf)
+                           for name, leaf in leaf_paths(tree)})
+
+
+def load_into(live, values):
+    """Write `values` (a tree as `restore` returns it) into the tensors
+    of `live` in place: a module through `load_state_dict`, a tensor by
+    `copy_`; dicts and lists recursively.  Returns `live`."""
+    if isinstance(live, nn.Module):
+        live.load_state_dict({k: torch.as_tensor(v)
+                              for k, v in values.items()})
+    elif isinstance(live, dict):
+        for k in live:
+            live[k] = load_into(live[k], values[k])
+    elif isinstance(live, list):
+        for i in range(len(live)):
+            live[i] = load_into(live[i], values[i])
+    elif isinstance(live, torch.Tensor):
+        with torch.no_grad():
+            live.copy_(torch.as_tensor(values))
+    else:
+        return values
+    return live
 
 
 def save(root, step: int, tree, *, keep_last: int = 3) -> Path:
@@ -80,13 +136,13 @@ def save(root, step: int, tree, *, keep_last: int = 3) -> Path:
     tmp = root / f".step_{step:08d}.tmp-{uuid.uuid4().hex[:8]}"
     tmp.mkdir(parents=True)
     manifest = {"step": step, "time": time.time(), "leaves": []}
-    for name, leaf in _leaf_paths(tree):
-        arr = _host_copy(leaf)
+    for name, leaf in leaf_paths(tree):
+        arr, dtype = _npy(leaf)
         fname = name.replace("/", "__") + ".npy"
         np.save(tmp / fname, arr)
         manifest["leaves"].append(
             {"path": name, "file": fname, "shape": list(arr.shape),
-             "dtype": str(arr.dtype)}
+             "dtype": dtype}
         )
     (tmp / "manifest.json").write_text(json.dumps(manifest, indent=1))
     fd = os.open(tmp, os.O_RDONLY)  # sync the entries before publishing
@@ -120,8 +176,7 @@ class AsyncCheckpointer:
     def save_async(self, step: int, tree) -> None:
         """Snapshot `tree` now; write it as step `step` in the background."""
         self.wait()
-        values = {name: _host_copy(leaf) for name, leaf in _leaf_paths(tree)}
-        host_tree = _rebuild(tree, values)
+        host_tree = snapshot(tree)
 
         def work():
             try:
@@ -164,8 +219,10 @@ def restore(root, step: Optional[int], target_tree, device=None):
     `target_tree`, a tree whose leaves are arrays or anything with a
     `.shape` (checked against the file; leaves without one are not).
 
-    Returns (tree, step): numpy leaves, or with `device=` torch tensors
-    placed there (the reference's `shardings=` places jax arrays)."""
+    Returns (tree, step): numpy leaves (bfloat16 ones as CPU tensors,
+    numpy having no bfloat16), or with `device=` torch tensors placed
+    there (the reference's `shardings=` places jax arrays).  A module in
+    the template comes back as its state dict."""
     root = Path(root)
     if step is None:
         step = latest_step(root)
@@ -175,7 +232,7 @@ def restore(root, step: Optional[int], target_tree, device=None):
     manifest = json.loads((d / "manifest.json").read_text())
     by_path = {e["path"]: e for e in manifest["leaves"]}
     values = {}
-    for name, leaf in _leaf_paths(target_tree):
+    for name, leaf in leaf_paths(target_tree):
         entry = by_path.get(name)
         if entry is None:
             raise KeyError(f"checkpoint missing leaf {name!r}")
@@ -185,6 +242,9 @@ def restore(root, step: Optional[int], target_tree, device=None):
             raise ValueError(
                 f"shape mismatch for {name}: ckpt {arr.shape} vs {expect}"
             )
-        values[name] = (arr if device is None
-                        else torch.from_numpy(arr).to(device))
+        if entry["dtype"] == "bfloat16":  # uint16 here, |V2 from the reference
+            arr = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+        elif device is not None:
+            arr = torch.from_numpy(arr)
+        values[name] = arr if device is None else arr.to(device)
     return _rebuild(target_tree, values), manifest["step"]

@@ -1,5 +1,6 @@
-"""Synthetic image datasets for training and evaluation (port of
-`repro.data`, its image half)."""
+"""Data pipelines (port of `repro.data`): synthetic image datasets (paper
+eval), token streams (LM substrate), frontend-stub embedding streams
+(vlm/audio archs)."""
 
 from repro_torch.data.synthetic import (  # noqa: F401
     HG_LIKE,
@@ -7,4 +8,9 @@ from repro_torch.data.synthetic import (  # noqa: F401
     DatasetSpec,
     binarize_images,
     make_dataset,
+)
+from repro_torch.data.tokens import (  # noqa: F401
+    DataConfig,
+    memmap_stream,
+    synthetic_stream,
 )

@@ -66,6 +66,13 @@ def packed_rows(owner: nn.Module, name: str, w: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # BitLinear FFN
 # ---------------------------------------------------------------------------
+def _abs(x: torch.Tensor) -> torch.Tensor:
+    """|x| with the reference's derivative at 0: +1, as `jnp.abs` has it
+    (torch's `abs` has 0).  A BitLinear input is exactly 0 wherever a ±1
+    dot product of an earlier projection is 0, so the two differ there."""
+    return torch.where(x >= 0, x, -x)
+
+
 def _bit_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """sign(x) @ sign(w) with XNOR-Net scale recovery, differentiable.
 
@@ -73,8 +80,8 @@ def _bit_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     reference's float ±1 product: the plain version of `_bit_matmul_packed`
     and the training form.
     """
-    alpha = w.abs().mean(0)  # [N], in w's dtype
-    beta = x.abs().mean(-1, keepdim=True)  # [..., 1], in x's dtype
+    alpha = _abs(w).mean(0)  # [N], in w's dtype
+    beta = _abs(x).mean(-1, keepdim=True)  # [..., 1], in x's dtype
     xb = sign_ste(x.to(F32))
     wb = sign_ste(w.to(F32))
     return (torch.matmul(xb, wb) * alpha * beta).to(x.dtype)

@@ -1,5 +1,5 @@
 """The unified decoder-only model covering all ten architectures (port of
-`repro/models/model.py`, serving half).
+`repro/models/model.py`).
 
 One definition, driven entirely by ModelConfig:
   * dense / GQA transformers (stablelm, llama3.2, starcoder2, llama3-405b,
@@ -18,15 +18,21 @@ Entry points:
   init_params                    -- CausalLM drawn from a torch.Generator
   forward / final_hidden         -- [B, S] tokens -> [B, S, V] logits
                                     (or the normed hidden states)
+  loss_fn / chunked_loss         -- chunked-vocab cross entropy (+ MoE
+                                    aux), each block and chunk under the
+                                    config's remat policy
   init_cache / prefill / decode  -- serving paths
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import binary_lm
@@ -130,6 +136,36 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
+# matrix products, the outputs that remat "dots" keeps (the reference's
+# jax.checkpoint_policies.checkpoint_dots)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_wrap(cfg: ModelConfig, fn):
+    """`fn` under the config's remat policy: "none" keeps every
+    activation, "dots" only the matrix products' outputs, anything else
+    ("full") only the inputs.  Non-reentrant checkpointing recomputes
+    with autograd on, so a BitLinear FFN recomputes its training form."""
+    if cfg.remat == "none":
+        return fn
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+
+    def wrapped(*args):
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False, **kw)
+
+    return wrapped
+
+
 def _run_sublayer(p: Sublayer, cfg: ModelConfig, kind: str, use_moe: bool,
                   window: Optional[int], h, positions, inv_freq,
                   cache: Optional[dict], cache_index, aux: Optional[dict]):
@@ -152,30 +188,44 @@ def _run_sublayer(p: Sublayer, cfg: ModelConfig, kind: str, use_moe: bool,
     return h, new_cache
 
 
+def _run_block(block: Block, cfg: ModelConfig, h, positions, inv_freq,
+               block_cache: Optional[dict], cache_index, collect_aux: bool):
+    """One superblock.  Returns (h, its new cache dict, its MoE aux loss
+    or None)."""
+    pat = cfg.pattern()
+    aux = {"moe_aux": torch.zeros((), dtype=F32, device=h.device)} \
+        if collect_aux else None
+    new_cache = {}
+    for i in range(pat.size):
+        sub = f"sub{i}"
+        c = block_cache[sub] if block_cache is not None else None
+        h, nc = _run_sublayer(getattr(block, sub), cfg, pat.kinds[i],
+                              pat.moe_mask[i], pat.windows[i], h,
+                              positions, inv_freq, c, cache_index, aux)
+        if nc is not None:
+            new_cache[sub] = nc
+    return h, new_cache, (aux["moe_aux"] if collect_aux else None)
+
+
 def _stack(params: CausalLM, cfg: ModelConfig, h, positions, cache,
            cache_index, collect_aux: bool):
     """Run the block stack.  cache: a list of per-block dicts or None.
-    Returns (h, new cache or None, summed MoE aux loss)."""
+    Returns (h, new cache or None, summed MoE aux loss).  Under autograd
+    each block runs through the config's remat policy."""
     inv_freq = L.rope_frequencies(cfg, h.device)
-    pat = cfg.pattern()
     aux_sum = torch.zeros((), dtype=F32, device=h.device)
     new_cache = [] if cache is not None else None
+    block_fn = (_remat_wrap(cfg, _run_block) if torch.is_grad_enabled()
+                else _run_block)
     for b, block in enumerate(params.blocks):
-        aux = {"moe_aux": torch.zeros((), dtype=F32, device=h.device)} \
-            if collect_aux else None
-        block_cache = {}
-        for i in range(pat.size):
-            sub = f"sub{i}"
-            c = cache[b][sub] if cache is not None else None
-            h, nc = _run_sublayer(getattr(block, sub), cfg, pat.kinds[i],
-                                  pat.moe_mask[i], pat.windows[i], h,
-                                  positions, inv_freq, c, cache_index, aux)
-            if nc is not None:
-                block_cache[sub] = nc
+        h, block_cache, aux = block_fn(
+            block, cfg, h, positions, inv_freq,
+            cache[b] if cache is not None else None, cache_index,
+            collect_aux)
         if new_cache is not None:
             new_cache.append(block_cache)
         if collect_aux:
-            aux_sum = aux_sum + aux["moe_aux"]
+            aux_sum = aux_sum + aux
     return h, new_cache, aux_sum
 
 
@@ -216,6 +266,43 @@ def forward(params: CausalLM, cfg: ModelConfig, tokens=None, embeds=None,
     h, aux = final_hidden(params, cfg, tokens, embeds, positions,
                           collect_aux)
     return _logits(params, cfg, h), aux
+
+
+def chunked_loss(params: CausalLM, cfg: ModelConfig, h, labels,
+                 chunk: int = 512) -> torch.Tensor:
+    """Mean cross entropy of h [B, S, D] against labels [B, S], with the
+    [B, chunk, V] logits tensor bounded: the sequence in chunks of
+    `chunk` (one chunk of S when S is not a multiple), each chunk's
+    logits in float32 under the config's remat policy, a float32
+    logsumexp less the gold logit, summed and divided by B * S."""
+    b, s, _ = h.shape
+    head = _lm_head(params, cfg)
+    if s % chunk != 0:
+        chunk = s
+    body = (_remat_wrap(cfg, _chunk_ce) if torch.is_grad_enabled()
+            else _chunk_ce)
+    total = torch.zeros((), dtype=F32, device=h.device)
+    for i in range(0, s, chunk):
+        total = total + body(h[:, i:i + chunk], labels[:, i:i + chunk], head)
+    return total / (b * s)
+
+
+def _chunk_ce(h, labels, head) -> torch.Tensor:
+    """Summed cross entropy of one chunk: logsumexp - gold, float32."""
+    logits = torch.matmul(h, head).to(F32)
+    gold = logits.gather(-1, labels[..., None].long())[..., 0]
+    return (torch.logsumexp(logits, -1) - gold).sum()
+
+
+def loss_fn(params: CausalLM, cfg: ModelConfig, batch: dict,
+            aux_weight: float = 0.01):
+    """batch: {"tokens" | "embeds", "labels"} (tensors on the model's
+    device) -> (ce + aux_weight * MoE aux, {"ce", "moe_aux"})."""
+    h, aux = final_hidden(params, cfg, batch.get("tokens"),
+                          batch.get("embeds"),
+                          collect_aux=cfg.n_experts > 0)
+    ce = chunked_loss(params, cfg, h, batch["labels"])
+    return ce + aux_weight * aux, {"ce": ce, "moe_aux": aux}
 
 
 # ---------------------------------------------------------------------------

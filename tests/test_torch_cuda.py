@@ -903,3 +903,74 @@ def test_lm_serving_on_card_launches_kernels_and_equals_cpu(dev, arch):
     np.testing.assert_allclose(outs["card"][0], outs["cpu"][0], atol=1e-4,
                                rtol=1e-4)
     assert torch.equal(outs["card"][1], outs["cpu"][1])
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b+smoke",
+                                  "llama3.2-1b+smoke+binary-ffn",
+                                  "mixtral-8x7b+smoke"])
+def test_lm_train_step_on_card_equals_cpu(dev, arch):
+    """One train step (loss, grads, AdamW with float32 masters) on the card
+    against the same on the CPU, float32 (TF32 off): loss to 1e-5
+    relative, grad norm to 1e-4 relative, parameters after the update to
+    1e-5; no kernel launches inside the step."""
+    from repro_torch import configs
+    from repro_torch.data.tokens import DataConfig, synthetic_stream
+    from repro_torch.models import model as M
+    from repro_torch.train import TrainConfig, init_train_state
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = dataclasses.replace(configs.get_config(arch), remat="full")
+    tcfg = TrainConfig(opt=O.OptimizerConfig(warmup_steps=0))
+    card = init_train_state(cfg, tcfg, torch.Generator(dev).manual_seed(0))
+    cpu_model = M.CausalLM(cfg, "cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in
+                               card["params"].state_dict().items()})
+    cpu = {"params": cpu_model, "opt": O.init_opt_state(tcfg.opt, cpu_model)}
+    batch = next(synthetic_stream(DataConfig(batch=4, seq_len=32,
+                                             vocab_size=cfg.vocab_size)))
+    step = make_train_step(cfg, tcfg)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    binary_gemm.binary_gemm_hd.launches = 0
+    try:
+        card, got = step(card, batch)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert binary_gemm.binary_gemm_hd.launches == 0
+    cpu, want = step(cpu, batch)
+    assert float(got["loss"]) == pytest.approx(float(want["loss"]), rel=1e-5)
+    assert float(got["grad_norm"]) == pytest.approx(float(want["grad_norm"]),
+                                                    rel=1e-4)
+    for k, p in card["params"].named_parameters():
+        np.testing.assert_allclose(
+            p.detach().cpu().numpy(),
+            cpu["params"].get_parameter(k).detach().numpy(), atol=1e-5,
+            rtol=0, err_msg=k)
+
+
+def test_bf16_train_state_checkpoint_round_trips_on_card(dev, tmp_path):
+    """A bf16 CausalLM train state on the card through AsyncCheckpointer
+    and restore(device=): bit for bit, back on the card, and written
+    into fresh live tensors by load_into."""
+    from repro_torch import configs
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.train import TrainConfig, init_train_state
+
+    cfg = dataclasses.replace(configs.get_config("llama3.2-1b+smoke"),
+                              dtype="bfloat16")
+    state = init_train_state(cfg, TrainConfig(),
+                             torch.Generator(dev).manual_seed(0))
+    ac = ckpt.AsyncCheckpointer(tmp_path)
+    ac.save_async(3, state)
+    ac.wait()
+    values, step = ckpt.restore(tmp_path, None, state, device=dev)
+    assert step == 3
+    assert values["params"]["embed"].dtype == torch.bfloat16
+    assert values["params"]["embed"].device.type == "cuda"
+    fresh = init_train_state(cfg, TrainConfig(),
+                             torch.Generator(dev).manual_seed(1))
+    ckpt.load_into(fresh, values)
+    for (name, a), (_, b) in zip(ckpt.leaf_paths(fresh),
+                                 ckpt.leaf_paths(state)):
+        assert torch.equal(a, b), name

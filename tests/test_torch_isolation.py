@@ -66,8 +66,10 @@ def test_port_imports_no_jax_and_defaults_to_cuda():
 _LM_PROBE = textwrap.dedent("""
     import sys
     import torch
-    from repro_torch import configs
+    from repro_torch import configs, ft, train
+    from repro_torch.data import tokens
     from repro_torch.launch import serve
+    from repro_torch.launch import train as launch_train
     from repro_torch.models import binary_lm, layers, model, ssm
     from repro_torch.serve import engine, steps
 
@@ -83,21 +85,33 @@ _LM_PROBE = textwrap.dedent("""
                       lambda: model.CausalLM(cfg),
                       lambda: engine.Engine(cfg, params,
                                             engine.EngineConfig()),
-                      lambda: serve.main(["--requests", "1"])):
+                      lambda: serve.main(["--requests", "1"]),
+                      lambda: train.init_train_state(cfg, train.TrainConfig(),
+                                                     torch.Generator()),
+                      lambda: launch_train.main(["--arch",
+                                                 "llama3.2-1b+smoke",
+                                                 "--steps", "1"])):
             try:
                 entry()
             except RuntimeError as e:
                 assert "CUDA" in str(e), e
             else:
                 raise AssertionError("LM entry point ran without CUDA")
+        state = train.init_train_state(cfg, train.TrainConfig(),
+                                       torch.Generator(), device="cpu")
+        assert state["params"].device.type == "cpu"
+        assert launch_train.main(["--arch", "llama3.2-1b+smoke", "--steps",
+                                  "1", "--seq", "8", "--device", "cpu"])
     print("LM ISOLATED")
 """)
 
 
 def test_lm_port_imports_no_jax_and_defaults_to_cuda():
-    """The LM modules (configs, models, serve.engine/steps, launch.serve)
-    pull in no jax/repro; init_params, CausalLM, Engine and the serve
-    launcher default to the card and raise without one."""
+    """The LM modules (configs, models, serve.engine/steps, launch.serve,
+    train, ft, data.tokens, launch.train) pull in no jax/repro;
+    init_params, CausalLM, Engine, init_train_state and both launchers
+    default to the card and raise without one, and run on the CPU when
+    asked."""
     env = dict(os.environ)
     env["PYTHONPATH"] = str(SRC)
     out = subprocess.run([sys.executable, "-c", _LM_PROBE], env=env,
