@@ -128,10 +128,24 @@ exit 0):
    straggler at 31-35) under deterministic algorithms, final state ==
    the failure-free run's.  ms a step, tokens/s, peak memory and the
    losses in an `{"lm_train": ...}` line.
-9. A `{"kernels": [...]}` line (launches on the kernel's path, on the
-   silicon, train, LM and LM-training paths, error, times, sampled-form
-   times, bound, the LM-shape rows), then, as the last line, `{"ok":
-   true, "device": ...}`.
+9. The sharding layer on one card, a (1, 1) mesh, with every launch
+   counter set to 0 just before each sharded path: the four paper
+   classifiers through `PicBnnServer(fanout="spmd")` (over the card, and
+   over two slices of it), kernels 3 and 4 required, predictions ==
+   round-robin (phase 3) == a direct `run`, device -1 on each result;
+   `launch.serve --model-parallel 1` on llama3.2-1b+binary-ffn with the
+   CAM head at full width and depth (DTensor parameters, one NCCL rank),
+   kernels 1 and 2 required on the local shards and == their plain
+   versions on the packed rows the sharded path made, tokens == the
+   same launcher without a mesh; `launch.train --model-parallel 1` on
+   llama3.2-1b at 2 blocks, float32: one step == the unsharded step
+   within phase 8's tolerances.  Decode ms a token and train ms a step,
+   mesh against none (the DTensor layer's cost), in a `{"mesh": ...}`
+   line.
+10. A `{"kernels": [...]}` line (launches on the kernel's path, on the
+   silicon, train, LM, LM-training and mesh paths, error, times,
+   sampled-form times, bound, the LM-shape rows), then, as the last
+   line, `{"ok": true, "device": ...}`.
 
 Without CUDA, or without the rest of the repository beside it, the script
 exits non-zero before printing any result.  It imports nothing of JAX.
@@ -2016,6 +2030,304 @@ def lm_train_phase(dev, smi: str, card, counted, quick: bool) -> dict:
                 card=smi)
 
 
+# ----------------------------------------------------- the mesh path (9)
+# the sharded LM serving workload: phase 7's, through the serving launcher
+# (8 requests of 16 prompt tokens, 16 new, batches of 4); each timed run
+# after an untimed one of the same launcher
+MESH_SERVE = ["--cam-head", "--requests", str(LM_REQUESTS), "--prompt-len",
+              str(LM_PROMPT), "--max-new", str(LM_NEW), "--batch",
+              str(LM_BATCH)]
+# the sharded train step: llama3.2-1b, full width, 2 blocks, float32 (TF32
+# off; the launcher is handed the cut config), batch 2 x 64, lr 3e-4 with
+# no warmup as in phase 8(c), so a skipped or doubled update differs by
+# ~lr, thirty times TRAIN_CPU_PARAM_ATOL; one step compared, four timed
+# (the first loads the libraries)
+MESH_TRAIN = ["--batch", "2", "--seq", "64", "--log-every", "1000"]
+
+
+def mesh_phase(dev, smi: str, card, counted, served_models: dict,
+               served_rr: dict, quick: bool) -> dict:
+    """Phase 9: the sharding layer on one card, a (1, 1) mesh.
+
+    (a) The four paper classifiers in `PicBnnServer(fanout="spmd")`,
+    once over the card's devices (one) and once over two slices of the
+    one card ([dev, dev]: each bucket split in two, each half on its own
+    stream, gathered on the first), 400 requests a model each; the
+    counts set to 0 just before, kernels 3 and 4 required.  Predictions
+    and votes equal phase 3's round-robin server and a direct `run`, and
+    every result carries device -1.  Then the two slices under load:
+    each model's whole input in bursts of 1-39, each equal to a direct
+    `run`.
+    (b) `launch.serve --model-parallel 1` on llama3.2-1b+binary-ffn with
+    the CAM head at full width and depth (DTensor parameters under
+    SERVE_RULES, one NCCL rank), the counts set to 0 just before it:
+    kernels 1 (the BitLinear FFN) and 2 (the CAM head) must launch on the
+    local shards; its tokens equal the same launcher's without a mesh on
+    the same weights (phase 7's unsharded Engine); kernel 1 at the
+    path's prefill and decode shapes and kernel 2 at its head, on the
+    packed rows the sharded path made, equal to their plain versions.
+    (c) `launch.train --model-parallel 1` on llama3.2-1b at 2 blocks,
+    float32, lr 3e-4 with no warmup: the state after one step against
+    the launcher's without a mesh, within phase 8's tolerances (loss,
+    each m and v leaf, the update where |g| >= 1e3 * eps to lr / 30).
+    Decode ms a token and train ms a step, sharded against unsharded,
+    are the DTensor layer's cost on one card.  `quick` (a CPU
+    rehearsal) takes the `+smoke` configs and a gloo rank."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch import serve as lserve
+    from repro_torch.launch import train as ltrain
+    from repro_torch.models import binary_lm
+    from repro_torch.serve.picbnn import BatchingPolicy, PicBnnServer
+    from repro_torch.sharding.rules import is_dtensor
+    from repro_torch.spec import InferenceSpec
+    from repro_torch.train.optimizer import OptimizerConfig, schedule
+
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    smoke = "+smoke" if quick else ""
+    dev_args = [] if on_card else ["--device", str(dev)]
+    launches = {}
+
+    def zero():
+        for fn in counted:
+            fn.launches = 0
+
+    def counts():
+        sync(dev)
+        return {fn.__name__: fn.launches for fn in counted}
+
+    # ------------------------------ (a) classifiers, fanout="spmd"
+    layouts = {"card": None if on_card else [dev], "2 slices": [dev, dev]}
+    policy = BatchingPolicy(max_batch=256, max_wait_us=500)
+    spmd, rates = {}, {}
+    zero()
+    for label, devices in layouts.items():
+        server = PicBnnServer(policy, devices=devices, fanout="spmd")
+        for mid, m in served_models.items():
+            server.register(mid, m["gpu"])
+        server.warmup()
+        with server:
+            singles = {mid: [server.submit(mid, m["x"][i])
+                             for i in range(100)]
+                       for mid, m in served_models.items()}
+            bursts = {mid: server.submit_many(mid, m["x"][100:400])
+                      for mid, m in served_models.items()}
+            for mid in served_models:
+                res = [h.result(timeout=60) for h in singles[mid]]
+                spmd[(label, mid)] = (
+                    np.concatenate([np.stack([r.votes for r in res]),
+                                    bursts[mid].votes_all(timeout=60)]),
+                    np.concatenate([[r.pred for r in res],
+                                    bursts[mid].wait_all(timeout=60)]),
+                    {r.device for r in res})
+        rates[label] = {mid: ms.inf_per_s for mid, ms in
+                        server.stats().per_model.items()}
+    launches["spmd"] = counts()
+    print(f"mesh path (a) fanout=spmd: launches {launches['spmd']}")
+    for name in ("fused_mlp_votes", "fused_conv_votes"):
+        require(launches["spmd"][name] > 0 or not on_card,
+                f"{name} was not launched under fanout='spmd'")
+    for (label, mid), (votes, preds, devs) in spmd.items():
+        direct = served_models[mid]["gpu"].run(
+            served_models[mid]["x"][:400], InferenceSpec()).cpu().numpy()
+        require(np.array_equal(votes, direct),
+                f"spmd {label} {mid}: votes != direct run")
+        require(np.array_equal(votes, served_rr[mid]),
+                f"spmd {label} {mid}: votes != round-robin")
+        require(np.array_equal(preds, direct.argmax(-1)),
+                f"spmd {label} {mid}: predictions != direct argmax")
+        require(devs == {-1}, f"spmd {label} {mid}: result devices {devs}")
+    print(f"  spmd ({', '.join(layouts)}): 4 models x 400 requests == "
+          f"round-robin == direct run, device -1 on every result")
+    # the two-slice gather under load: each model's whole input in bursts
+    # of 1-39 requests, submitted back to back so batches stay in flight,
+    # each burst equal to a direct run
+    server = PicBnnServer(policy, devices=[dev, dev], fanout="spmd")
+    for mid, m in served_models.items():
+        server.register(mid, m["gpu"])
+    server.warmup()
+    n_x = min(len(m["x"]) for m in served_models.values())
+    cuts = np.cumsum(np.random.default_rng(SEED + 43).integers(1, 40, n_x))
+    cuts = np.r_[0, cuts[cuts < n_x], n_x]
+    with server:
+        stress = [(mid, lo, hi, server.submit_many(mid, m["x"][lo:hi]))
+                  for lo, hi in zip(cuts[:-1], cuts[1:])
+                  for mid, m in served_models.items()]
+        got = {mid: np.concatenate([h.votes_all(timeout=120)
+                                    for m2, _, _, h in stress if m2 == mid])
+               for mid in served_models}
+    for mid, m in served_models.items():
+        direct = m["gpu"].run(m["x"][:n_x], InferenceSpec()).cpu().numpy()
+        require(np.array_equal(got[mid], direct),
+                f"spmd 2 slices {mid}: {len(cuts) - 1} bursts != direct run")
+    print(f"  spmd 2 slices under load: 4 models x {len(cuts) - 1} bursts "
+          f"({n_x} requests each) == direct run")
+
+    # one rank for the whole phase; each launcher finds it and leaves it
+    lmesh.ensure_process_group(dev.type)
+    try:
+        # ---------------------- (b) LM serving, --model-parallel 1
+        sv = ["--arch", "llama3.2-1b+binary-ffn" + smoke] + MESH_SERVE \
+            + dev_args
+        mp = ["--model-parallel", "1"]
+        lserve.run(sv)  # warm: kernel loads, the allocator's pools
+        plain = lserve.run(sv)
+        require(dist.is_initialized(), "the serving launcher destroyed the "
+                "caller's process group")
+        lserve.run(sv + mp)  # warm: DTensor's sharding-propagation caches
+        sync(dev)
+        zero()
+        sharded = lserve.run(sv + mp)
+        launches["lm_serve"] = counts()
+        print(f"mesh path (b) launch.serve --model-parallel 1: launches "
+              f"{launches['lm_serve']}")
+        for name in ("binary_gemm_hd", "cam_vote"):
+            require(launches["lm_serve"][name] > 0 or not on_card,
+                    f"{name} was not launched on the sharded LM path")
+        params, cfg = sharded["params"], sharded["cfg"]
+        require(is_dtensor(params.embed) and is_dtensor(
+            params.blocks[0].sub0.ffn.w_gate), "parameters are not DTensors")
+        toks = [r.tokens for r in sharded["results"]]
+        require(toks == [r.tokens for r in plain["results"]],
+                "sharded engine tokens != unsharded")
+
+        def serve_perf(out):
+            heads = out["results"][::LM_BATCH]
+            return dict(prefill_ms=float(np.mean([r.prefill_ms
+                                                  for r in heads])),
+                        decode_ms_per_token=float(np.mean(
+                            [r.decode_ms / (LM_NEW - 1) for r in heads])),
+                        tokens_per_s=sum(len(r.tokens) for r in
+                                         out["results"]) / out["wall_s"])
+
+        perf = {"serve_unsharded": serve_perf(plain),
+                "serve_mesh_1x1": serve_perf(sharded)}
+        # the kernels on the packed local rows the sharded path made
+        ffn = params.blocks[0].sub0.ffn
+
+        def packed(owner, prefix):
+            return next(v[1] for k, v in owner.__dict__["_packed"].items()
+                        if k.startswith(prefix + "@"))
+
+        rng = np.random.default_rng(0)  # the launcher's prompts
+        prompts = torch.from_numpy(np.stack([
+            rng.integers(1, cfg.vocab_size, LM_PROMPT).astype(np.int32)
+            for _ in range(LM_REQUESTS)]))
+        gen = torch.Generator(dev).manual_seed(SEED + 41)
+        with torch.no_grad():
+            x = params.embed.to_local()[prompts[:LM_BATCH].to(dev)].reshape(
+                -1, cfg.d_model)
+            act = torch.randn((LM_BATCH, cfg.d_ff), generator=gen,
+                              device=dev).to(x.dtype)
+            h = torch.randn((LM_BATCH, cfg.d_model), generator=gen,
+                            device=dev)
+            k1 = [gemm_case("mesh BitLinear prefill w_gate",
+                            binary_lm.sign_bits(x), packed(ffn, "w_gate")[0]),
+                  gemm_case("mesh BitLinear decode w_down",
+                            binary_lm.sign_bits(act),
+                            packed(ffn, "w_down")[0])]
+            k2 = [vote_case("mesh CAM head llama3.2-1b",
+                            binary_lm.sign_bits(h),
+                            packed(params.cam_head, "rows"),
+                            params.cam_head.thresholds.to_local())]
+            rows = {"binary_gemm_hd": lm_kernel_rows(card, "binary_gemm_hd",
+                                                     k1),
+                    "cam_vote": lm_kernel_rows(card, "cam_vote", k2)}
+        del plain, sharded, params, ffn, k1, k2, x, act, h
+        gc.collect()
+
+        # ---------------------- (c) LM training, --model-parallel 1
+        tr = ["--arch", "llama3.2-1b" + smoke] + MESH_TRAIN + dev_args
+        cfg32 = dataclasses.replace(
+            configs.get_config("llama3.2-1b" + smoke), n_layers=2,
+            dtype="float32")
+        ocfg = OptimizerConfig(warmup_steps=0)  # lr 3e-4 from the first step
+        one = [ltrain.run(tr + ["--steps", "1"] + mp, cfg=cfg32, opt=ocfg)
+               for mp in ([], ["--model-parallel", "1"])]
+        (s0, l0), (s1, l1) = ((o["state"], o["losses"][0]) for o in one)
+        lr = float(schedule(ocfg, torch.zeros((), dtype=torch.int32)))
+        require(abs(lr / ocfg.lr - 1) < 1e-6,
+                f"mesh train step: first-step lr {lr}")
+
+        def whole(t):
+            return (t.full_tensor() if is_dtensor(t) else t).detach()
+
+        loss_rel = abs(l1 / l0 - 1)
+        rel = {}
+        for what in ("m", "v"):
+            rel[what] = max(
+                float((whole(s1["opt"][what][k]) - v).abs().max()
+                      / v.abs().max().clamp_min(1e-30))
+                for k, v in s0["opt"][what].items())
+        opt = s0["opt"]
+        g_floor = TRAIN_CPU_G_FLOOR * ocfg.eps
+        upd, n_cmp = 0.0, 0
+        p1 = dict(s1["params"].named_parameters())
+        for k, p in s0["params"].named_parameters():
+            # the clipped gradient Adam saw: m = (1 - b1) * g at step 1
+            sure = opt["m"][k].abs() / (1 - ocfg.b1) >= g_floor
+            if bool(sure.any()):
+                upd = max(upd, float((whole(p1[k]) - p.detach())[sure]
+                                     .abs().max()))
+                n_cmp += int(sure.sum())
+        require(loss_rel <= TRAIN_CPU_LOSS_RTOL,
+                f"mesh train step: loss rel {loss_rel:.2e}")
+        require(rel["m"] <= TRAIN_CPU_GNORM_RTOL and
+                rel["v"] <= 2 * TRAIN_CPU_GNORM_RTOL,
+                f"mesh train step: m / v max rel {rel}")
+        require(n_cmp > 0 and upd <= TRAIN_CPU_PARAM_ATOL,
+                f"mesh train step: update max |d| {upd:.2e} at {n_cmp} "
+                f"(lr {lr:.1e})")
+        del one, s0, s1, p1, opt
+        gc.collect()
+        timed = {}
+        for label, mp in (("train_unsharded", []),
+                          ("train_mesh_1x1", ["--model-parallel", "1"])):
+            out = ltrain.run(tr + ["--steps", "4"] + mp, cfg=cfg32, opt=ocfg)
+            timed[label] = step_stats(out["step_s"], 2 * 64)
+            del out
+            gc.collect()
+        perf.update(timed)
+        require(dist.is_initialized(), "the train launcher destroyed the "
+                "caller's process group")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    if on_card:
+        torch.cuda.empty_cache()
+    for key, p in perf.items():
+        print(f"  {key:18s} " + ", ".join(
+            f"{k} {v:.3f}" for k, v in p.items()
+            if k in ("prefill_ms", "decode_ms_per_token", "ms_per_step",
+                     "tokens_per_s")) + f" ({smi})")
+    dt_cost = dict(
+        decode_ms_per_token=(perf["serve_mesh_1x1"]["decode_ms_per_token"],
+                             perf["serve_unsharded"]["decode_ms_per_token"]),
+        train_ms_per_step=(perf["train_mesh_1x1"]["ms_per_step"],
+                           perf["train_unsharded"]["ms_per_step"]))
+    print(f"  DTensor cost on one card (mesh 1x1 vs none): decode "
+          f"{dt_cost['decode_ms_per_token'][0]:.3f} vs "
+          f"{dt_cost['decode_ms_per_token'][1]:.3f} ms/token, train "
+          f"{dt_cost['train_ms_per_step'][0]:.1f} vs "
+          f"{dt_cost['train_ms_per_step'][1]:.1f} ms/step ({smi})")
+    print(f"  mesh train step == unsharded: loss rel {loss_rel:.2e}, m "
+          f"{rel['m']:.2e}, v {rel['v']:.2e}, update max |d| {upd:.2e} at "
+          f"{n_cmp} elements; sharded tokens == unsharded")
+    phase_s = time.perf_counter() - t_phase
+    print(f"mesh phase: {phase_s:.1f} s")
+    return dict(launches=launches, perf=perf, dtensor_cost=dt_cost,
+                kernels=rows, spmd_inf_per_s=rates,
+                train_step=dict(loss_rel=loss_rel, m_max_rel=rel["m"],
+                                v_max_rel=rel["v"], update_max_abs=upd,
+                                update_elements=n_cmp),
+                phase_s=phase_s, card=smi)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check needs the card",
@@ -2064,7 +2376,7 @@ def main() -> int:
 
 def run(dev: torch.device, b_main: int, batches, card: Card,
         smi: str) -> list:
-    """Phases 2-8 on `dev`; returns the kernels line's entries.
+    """Phases 2-9 on `dev`; returns the kernels line's entries.
 
     Called with the card by `main`; a CPU rehearsal may call it with
     device "cpu" and small batches (every kernel then takes its plain
@@ -2384,6 +2696,11 @@ def run(dev: torch.device, b_main: int, batches, card: Card,
     lm_train = lm_train_phase(dev, smi, card, counted, quick=not on_card)
     print(json.dumps({"lm_train": lm_train}))
 
+    # -------------------------------------------- the mesh path (phase 9)
+    mesh = mesh_phase(dev, smi, card, counted, served_models, served,
+                      quick=not on_card)
+    print(json.dumps({"mesh": mesh}))
+
     # ------------------------------------------------------------ summary
     line = []
     for name, r in report.items():
@@ -2407,6 +2724,10 @@ def run(dev: torch.device, b_main: int, batches, card: Card,
             train_launches=train["launches"][name],
             lm_launches=lm["launches"][name], lm=lm["kernels"].get(name),
             lm_train_launches=lm_train["launches"][name],
+            # phase 9: fanout="spmd" (kernels 3/4) and the sharded LM
+            # serving launcher (kernels 1/2), each counted from 0
+            mesh_launches=sum(v[name] for v in mesh["launches"].values()),
+            mesh=mesh["kernels"].get(name),
             sampled_ms=r.get("sampled", {}).get(
                 "hg_cnn" if "conv" in name else "hg", {}).get("ms"),
             sampled=r.get("sampled"),

@@ -43,6 +43,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.sharding.rules import MeshPlacement, is_dtensor
+
 
 def leaf_paths(tree, prefix: tuple = ()) -> list[tuple[str, Any]]:
     """[(path, leaf)] of a tree, dict keys in sorted order."""
@@ -67,8 +69,15 @@ def _host_copy(leaf):
     shares its memory with the next in-place update), else a numpy
     array."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().to("cpu", copy=True)
+        return _whole(leaf).to("cpu", copy=True)
     return np.array(leaf)
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A tensor detached, a DTensor gathered whole (a collective: every
+    rank of its mesh takes part)."""
+    t = t.detach()
+    return t.full_tensor() if is_dtensor(t) else t
 
 
 def _npy(leaf) -> tuple[np.ndarray, str]:
@@ -76,7 +85,7 @@ def _npy(leaf) -> tuple[np.ndarray, str]:
     bfloat16 (a tensor, or ml_dtypes' in a reference tree) as its uint16
     bit pattern."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().cpu()
+        t = _whole(leaf).cpu()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
         arr = t.numpy()
@@ -111,14 +120,23 @@ def load_into(live, values):
     of `live` in place: a module through `load_state_dict`, a tensor by
     `copy_`; dicts and lists recursively.  Returns `live`."""
     if isinstance(live, nn.Module):
-        live.load_state_dict({k: torch.as_tensor(v)
-                              for k, v in values.items()})
+        if any(is_dtensor(t) for t in live.state_dict().values()):
+            state = live.state_dict(keep_vars=True)
+            for k, v in values.items():
+                load_into(state[k], v)
+        else:
+            live.load_state_dict({k: torch.as_tensor(v)
+                                  for k, v in values.items()})
     elif isinstance(live, dict):
         for k in live:
             live[k] = load_into(live[k], values[k])
     elif isinstance(live, list):
         for i in range(len(live)):
             live[i] = load_into(live[i], values[i])
+    elif is_dtensor(live):
+        with torch.no_grad():
+            live.copy_(MeshPlacement(live.device_mesh, live.placements).put(
+                torch.as_tensor(values).to(live.device)))
     elif isinstance(live, torch.Tensor):
         with torch.no_grad():
             live.copy_(torch.as_tensor(values))

@@ -129,3 +129,26 @@ def lm_cache_from_jax(cache, cfg, device=None) -> list:
             for b in range(cfg.blocks):
                 out[b].setdefault(sub, {})[k] = stacked[b].to(device)
     return out
+
+
+def lm_specs_from_jax(tree, cfg) -> dict:
+    """The reference's per-leaf sharding specs (`param_pspecs`: a
+    PartitionSpec per leaf, blocks stacked) -> plain tuples by the port's
+    state-dict names, as `lm_params_from_jax` names the weights, with
+    each block leaf's leading blocks-axis entry dropped."""
+    specs = {name: tuple(spec) for name, spec in _flatten(
+        {k: v for k, v in tree.items() if k != "blocks"})}
+    for name, spec in _flatten(tree["blocks"]):
+        for b in range(cfg.blocks):
+            specs[f"blocks.{b}.{name}"] = tuple(spec)[1:]
+    return specs
+
+
+def lm_cache_specs_from_jax(tree, cfg) -> list:
+    """The reference's `cache_pspecs` ({sub{i}: {leaf: spec}}, blocks
+    stacked) -> the port's cache list of {sub{i}: {leaf: tuple}}, the
+    blocks entry dropped."""
+    block = {sub: {k: tuple(spec)[1:] for k, spec in leaves.items()}
+             for sub, leaves in tree.items()}
+    return [block for _ in range(cfg.blocks)]
+

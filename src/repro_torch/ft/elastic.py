@@ -1,12 +1,12 @@
-"""Elastic scaling: move a training state onto another device set (port
-of `repro/ft/elastic.py`, one card).
+"""Elastic scaling: reshard a training state onto another device set
+(port of `repro/ft/elastic.py`).
 
-Scenario: a host is lost mid-run; the scheduler hands back a different
-device.  The supervisor either restores the latest checkpoint onto it
-(cold path, always works) or moves the live state (warm path, same
-process).  The reference's `state_shardings` (NamedShardings from the
-logical axis rules over a mesh) waits for the port's sharding layer;
-with one card a state's placement is its device.
+Scenario: a host is lost mid-run; the scheduler hands back a smaller (or
+later, larger) device set.  The supervisor rebuilds the mesh, recomputes
+the placements from the SAME logical rules (`state_shardings`), and
+either restores the latest checkpoint against them (cold path, always
+works) or reshards the live state (warm path, same process).  On one
+card a state's placement can also be just its device.
 
 Batch elasticity: the global batch is kept constant by rescaling the
 gradient-accumulation factor (microbatches) to the new data-parallel
@@ -18,11 +18,44 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import model as M
+from repro_torch.sharding import AxisRules
+from repro_torch.sharding.rules import MeshPlacement, layout
+from repro_torch.train.optimizer import named_params
 
-def reshard_state(state, device):
-    """Warm path: every leaf of the state moved to `device` (a module in
-    place, by `.to`); returns the moved state."""
-    device = torch.device(device)
+
+def state_shardings(cfg: ModelConfig, mesh, rules: AxisRules,
+                    state_template) -> dict:
+    """`MeshPlacement`s for a {"params", "opt"} train state on a
+    DeviceMesh: each parameter by `param_pspecs` (sanitised against the
+    template's shape), its moments and master like it, `step`
+    replicated."""
+    rules = rules.resolve(mesh)
+    specs = M.param_pspecs(cfg, rules)
+    params = named_params(state_template["params"])
+
+    def named(tree):
+        return {k: MeshPlacement(mesh, layout(specs[k], t.shape, mesh))
+                for k, t in tree.items()}
+
+    opt = {}
+    for k, v in state_template["opt"].items():
+        if k == "step":
+            opt[k] = MeshPlacement(mesh, layout((), v.shape, mesh))
+        else:
+            opt[k] = named(v)
+    return {"params": named(params), "opt": opt}
+
+
+def reshard_state(state, target):
+    """Warm path.  `target` a device: every leaf moved there (a module in
+    place, by `.to`).  `target` a `state_shardings` tree: every leaf put
+    by its `MeshPlacement` (a module's parameters replaced in place).
+    Returns the moved state."""
+    if isinstance(target, dict):
+        return _put_tree(state, target)
+    device = torch.device(target)
     if isinstance(state, nn.Module):
         return state.to(device)
     if isinstance(state, dict):
@@ -32,6 +65,20 @@ def reshard_state(state, device):
     if isinstance(state, torch.Tensor):
         return state.to(device)
     return state
+
+
+def _put_tree(state, target):
+    if isinstance(state, nn.Module):
+        with torch.no_grad():
+            for name, p in list(state.named_parameters()):
+                owner, _, leaf = name.rpartition(".")
+                mod = state.get_submodule(owner) if owner else state
+                setattr(mod, leaf, nn.Parameter(
+                    target[name].put(p), requires_grad=p.requires_grad))
+        return state
+    if isinstance(state, dict):
+        return {k: _put_tree(v, target[k]) for k, v in state.items()}
+    return target.put(state)
 
 
 def rescale_microbatches(

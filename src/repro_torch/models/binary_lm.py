@@ -19,6 +19,16 @@ Weight rows are packed once per loaded model (`packed_rows`, refreshed
 when a weight changes); activations are packed at each call, sign at 0
 -> +1 as in `sign_ste`.  On CPU tensors the kernels' wrappers take their
 plain versions.
+
+On DTensors (a mesh, `sharding.use_rules`) both heads call the same
+kernels on the local shards (`sharding.rules.local_plan`): a dim that
+the input's batch shards is gathered on the weight instead
+(weight-gathered serving); a weight split along K (row-parallel) gives each rank the
+partial dot K_loc - 2*HD_loc, an integer summed exactly over the ranks,
+each shard packed on its own (its last word zero-padded in both
+operands, so any K_loc is exact); a split along N (column-parallel, or
+the CAM head's vocab rows) gives each rank its own output columns.  The
+CAM head's votes need the whole HD, so its rows are gathered along D.
 """
 
 from __future__ import annotations
@@ -33,6 +43,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.binarize import pack_bits, sign_ste
 from repro_torch.kernels import ops
 from repro_torch.models.layers import _normal_
+from repro_torch.sharding import shard
+from repro_torch.sharding.rules import (is_dtensor, keep, local, local_plan,
+                                        summed)
 
 F32 = torch.float32
 
@@ -45,11 +58,13 @@ def sign_bits(x: torch.Tensor) -> torch.Tensor:
 def _once(owner: nn.Module, name: str, w: torch.Tensor, make):
     """`make(w)`, computed once per version of `w` and kept on `owner`.
 
-    Keyed by the tensor's storage, device and version counter, so loading
-    new weights (an in-place copy) or moving the model recomputes it.
+    Keyed by the tensor's storage, device and version counter (a
+    DTensor's: its local shard's), so loading new weights (an in-place
+    copy) or moving the model recomputes it.
     """
     cache = owner.__dict__.setdefault("_packed", {})
-    key = (w.data_ptr(), w.device, w._version)
+    local = w.to_local() if is_dtensor(w) else w
+    key = (local.data_ptr(), local.device, local._version)
     hit = cache.get(name)
     if hit is None or hit[0] != key:
         with torch.no_grad():
@@ -107,25 +122,61 @@ def _bit_matmul_packed(owner: nn.Module, name: str,
     return (dot * alpha * beta).to(x.dtype)
 
 
+def _bit_matmul_sharded(owner: nn.Module, name: str,
+                        x: torch.Tensor) -> torch.Tensor:
+    """`_bit_matmul_packed` on DTensors: kernel 1 on the local shards.
+
+    The integer partial dots of a K-split weight are summed over the
+    ranks before the scaling, alpha = E|w| is taken over whole columns
+    and beta = E|x| over the whole K, so the result is the unsharded
+    one's up to the order of beta's float sum."""
+    from torch.distributed.tensor import DTensor
+
+    w = getattr(owner, name)  # [K, N]
+    mesh, nd = w.device_mesh, x.ndim
+    xt, wt, out = local_plan(x, w, 0, 1)
+
+    def make(_):
+        wl = local(w, wt)
+        # alpha over whole columns: K gathered, N split as the output is
+        cols = local(w, keep(wt, lambda q: q.is_shard(1)))
+        return sign_bits(wl.t()), wl.shape[0], cols.abs().mean(0)
+
+    rows, k_loc, alpha = _once(owner, f"{name}@{wt}", w, make)
+    lead = keep(xt, lambda q: q.is_shard() and not q.is_shard(nd - 1))
+    beta = local(x.abs().mean(-1, keepdim=True), lead)
+    xl = local(x, xt)
+    hd = ops.binary_gemm_hd(sign_bits(xl.reshape(-1, k_loc)), rows)
+    dot = (k_loc - 2 * hd).to(F32).reshape(*xl.shape[:-1], rows.shape[0])
+    dot = DTensor.from_local(dot, mesh, out).redistribute(mesh, summed(out))
+    y = (dot.to_local() * alpha * beta).to(x.dtype)
+    return DTensor.from_local(y, mesh, summed(out))
+
+
 def bitlinear_mlp(p: nn.Module, cfg: ModelConfig,
                   h: torch.Tensor) -> torch.Tensor:
     """Drop-in binary replacement for `layers.mlp` (same parameters).
 
-    Autograd off: every projection through kernel 1; on: the float ±1
-    form (`_bit_matmul`)."""
+    Autograd off: every projection through kernel 1 (on DTensors, on
+    their local shards); on: the float ±1 form (`_bit_matmul`)."""
     if torch.is_grad_enabled():
         def bit(x, name):
             return _bit_matmul(x, getattr(p, name))
+    elif is_dtensor(h):
+        def bit(x, name):
+            return _bit_matmul_sharded(p, name, x)
     else:
         def bit(x, name):
             return _bit_matmul_packed(p, name, x)
     if cfg.mlp_act == "swiglu":
         gate = bit(h, "w_gate")
         up = bit(h, "w_up")
-        act = F.silu(gate.to(F32)).to(h.dtype) * up
-        return bit(act, "w_down")
+        act = shard(F.silu(gate.to(F32)).to(h.dtype) * up,
+                    "batch", "seq", "mlp")
+        return shard(bit(act, "w_down"), "batch", "seq", "embed")
     act = F.gelu(bit(h, "w_in").to(F32), approximate="tanh").to(h.dtype)
-    return bit(act, "w_out")
+    act = shard(act, "batch", "seq", "mlp")
+    return shard(bit(act, "w_out"), "batch", "seq", "embed")
 
 
 # ---------------------------------------------------------------------------
@@ -151,6 +202,10 @@ class CamHead(nn.Module):
         with torch.no_grad():
             self.thresholds.copy_(cam_thresholds(self.cfg,
                                                  self.thresholds.device))
+
+
+def cam_head_axes(cfg: ModelConfig) -> dict:
+    return {"rows": ("p_vocab", "p_mlp_d"), "thresholds": (None,)}
 
 
 def cam_thresholds(cfg: ModelConfig, device=None) -> torch.Tensor:
@@ -207,8 +262,33 @@ def cam_head_logits(p: CamHead, cfg: ModelConfig,
                  `ops.binary_gemm_hd`; the ADC/TDC baseline).
     Output is float32 [B, V], so argmax/sampling is unchanged.
     """
+    if is_dtensor(h):
+        return _cam_head_sharded(p, cfg, h)
     q = sign_bits(h)
     rows = packed_rows(p, "rows", p.rows)
     if cfg.cam_head_mode == "exact":
         return (cfg.d_model - 2 * ops.binary_gemm_hd(q, rows)).to(F32)
     return ops.cam_vote(q, rows, p.thresholds).to(F32)
+
+
+def _cam_head_sharded(p: CamHead, cfg: ModelConfig,
+                      h: torch.Tensor) -> torch.Tensor:
+    """`cam_head_logits` on DTensors: the kernels on the local shards.
+    A vote needs the whole HD, so the rows are gathered along D; their
+    vocab split stays, giving each rank its own columns of the votes
+    (`Shard(1)` over the vocab where the rows are split)."""
+    from torch.distributed.tensor import DTensor
+
+    mesh, nd = p.rows.device_mesh, h.ndim
+    xt, wt, out = local_plan(h, p.rows, 1, 0)
+    wt = keep(wt, lambda q: not q.is_shard(1))
+    xt = keep(xt, lambda q: not q.is_shard(nd - 1))
+    rows = _once(p, f"rows@{wt}", p.rows,
+                 lambda w: sign_bits(local(w, wt)))
+    q = sign_bits(local(h, xt))
+    if cfg.cam_head_mode == "exact":
+        v = cfg.d_model - 2 * ops.binary_gemm_hd(q, rows)
+    else:
+        thr = p.thresholds
+        v = ops.cam_vote(q, rows, thr.to_local() if is_dtensor(thr) else thr)
+    return DTensor.from_local(v.to(F32), mesh, summed(out))

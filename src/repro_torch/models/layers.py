@@ -3,8 +3,11 @@
 
 Each layer is an `nn.Module` holding the reference's parameters under
 the reference's names (so `convert.lm_params_from_jax` maps every leaf
-one to one) and a function of the reference's name computing it.  One
-card: no sharding annotations.
+one to one), a function of the reference's name computing it, and
+`*_param_axes` giving each parameter's logical axes.  Activations are
+annotated with `sharding.shard` at the reference's sites: the identity
+on plain tensors, a redistribution on DTensors under
+`sharding.use_rules(rules, mesh)`.
 
 Numerics: parameters live in `cfg.torch_dtype` (bf16 for the full
 configs).  A projection runs in the operands' dtype: the library's bf16
@@ -27,6 +30,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.sharding import shard
+from repro_torch.sharding.rules import (is_dtensor, logical_axis_size,
+                                        sharded_matmul)
 
 F32 = torch.float32
 NEG = -1e30  # the reference's masked score
@@ -47,7 +53,11 @@ def _normal_(ws, std: float, generator: torch.Generator) -> None:
 
 
 def _matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """[..., K] x [K, N] in the operands' dtype (float32 accumulation)."""
+    """[..., K] x [K, N] in the operands' dtype (float32 accumulation);
+    a DTensor weight takes the product of the local shards
+    (`sharding.rules.sharded_matmul`)."""
+    if is_dtensor(w):
+        return sharded_matmul(x, w)
     return torch.matmul(x, w)
 
 
@@ -134,6 +144,15 @@ class Attention(nn.Module):
                  self.wq.shape[0] ** -0.5, generator)
 
 
+def attention_param_axes(cfg: ModelConfig) -> dict:
+    return {
+        "wq": ("p_attn_d", "p_attn_heads", None),
+        "wk": ("p_attn_d", "p_attn_heads", None),
+        "wv": ("p_attn_d", "p_attn_heads", None),
+        "wo": ("p_attn_heads", None, "p_attn_d"),
+    }
+
+
 def _proj_heads(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum("bsd,dhk->bshk") in the operands' dtype."""
     b, s, _ = h.shape
@@ -182,6 +201,9 @@ def attention(p: Attention, cfg: ModelConfig, h, positions, inv_freq, *,
         q, k = _head_norm(q.to(F32)), _head_norm(k.to(F32))
     q = apply_rope(q.to(h.dtype), positions, inv_freq)
     k = apply_rope(k.to(h.dtype), positions, inv_freq)
+    q = shard(q, "batch", "seq", "heads", None)
+    k = shard(k, "batch", "seq", "kv_heads", None)
+    v = shard(v, "batch", "seq", "kv_heads", None)
     qg = q.reshape(b, s, g, r, hd).permute(0, 2, 3, 1, 4)  # [B,G,R,S,dh]
     pos = positions.to(torch.int32).expand(b, s)
 
@@ -223,9 +245,10 @@ def attention(p: Attention, cfg: ModelConfig, h, positions, inv_freq, *,
             qg, k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3), pos, pos,
             window)
 
-    out = out.permute(0, 3, 1, 2, 4).reshape(b, s, g * r * hd)
-    y = _matmul(out, p.wo.flatten(0, 1)).to(h.dtype)
-    return y, cache
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, s, g * r, hd)
+    out = shard(out, "batch", "seq", "heads", None)
+    y = _matmul(out.flatten(2), p.wo.flatten(0, 1)).to(h.dtype)
+    return shard(y, "batch", "seq", "embed"), cache
 
 
 # ---------------------------------------------------------------------------
@@ -247,6 +270,16 @@ class MLP(nn.Module):
 
     def draw(self, generator: torch.Generator) -> None:
         _draw_ffn(self, generator)
+
+
+def mlp_param_axes(cfg: ModelConfig) -> dict:
+    if cfg.mlp_act == "swiglu":
+        return {
+            "w_gate": ("p_mlp_d", "p_mlp_f"),
+            "w_up": ("p_mlp_d", "p_mlp_f"),
+            "w_down": ("p_mlp_f", "p_mlp_d"),
+        }
+    return {"w_in": ("p_mlp_d", "p_mlp_f"), "w_out": ("p_mlp_f", "p_mlp_d")}
 
 
 def _draw_ffn(p: nn.Module, generator: torch.Generator) -> None:
@@ -272,9 +305,11 @@ def mlp(p: MLP, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
     if cfg.mlp_act == "swiglu":
         gate = _matmul(h, p.w_gate)
         up = _matmul(h, p.w_up)
-        return _matmul(F.silu(gate) * up, p.w_down).to(h.dtype)
-    act = _gelu(_matmul(h, p.w_in))
-    return _matmul(act, p.w_out).to(h.dtype)
+        act = shard(F.silu(gate) * up, "batch", "seq", "mlp")
+        return shard(_matmul(act, p.w_down).to(h.dtype), "batch", "seq",
+                     "embed")
+    act = shard(_gelu(_matmul(h, p.w_in)), "batch", "seq", "mlp")
+    return shard(_matmul(act, p.w_out).to(h.dtype), "batch", "seq", "embed")
 
 
 # ---------------------------------------------------------------------------
@@ -300,6 +335,21 @@ class MoE(nn.Module):
         _draw_ffn(self, generator)
 
 
+def moe_param_axes(cfg: ModelConfig) -> dict:
+    if cfg.mlp_act == "swiglu":
+        return {
+            "router": (None, None),
+            "w_gate": ("p_expert", "p_mlp_d", "p_mlp_f"),
+            "w_up": ("p_expert", "p_mlp_d", "p_mlp_f"),
+            "w_down": ("p_expert", "p_mlp_f", "p_mlp_d"),
+        }
+    return {
+        "router": (None, None),
+        "w_in": ("p_expert", "p_mlp_d", "p_mlp_f"),
+        "w_out": ("p_expert", "p_mlp_f", "p_mlp_d"),
+    }
+
+
 def moe_capacity(n_tokens: int, cfg: ModelConfig) -> int:
     c = int(cfg.capacity_factor * n_tokens * cfg.moe_top_k / cfg.n_experts)
     return max(c, cfg.moe_top_k)
@@ -309,50 +359,105 @@ def moe(p: MoE, cfg: ModelConfig, h: torch.Tensor, *,
         aux: Optional[dict] = None) -> torch.Tensor:
     """Capacity-bounded top-k MoE over h: [B, S, D] -> [B, S, D].
 
-    One card holds one dispatch group (the reference's shard-local
-    groups with one data shard): capacity C = cf * T * k / E, earlier
-    tokens win the slots, overflow is dropped (its output 0).  Routing
-    ties: `torch.topk` and `jax.lax.top_k` may order equal router
-    probabilities differently, but random float router logits make a tie
-    a measure-zero event, so the tests never meet one.
+    Shard-local dispatch, as the reference's: the T = B*S tokens are cut
+    into G groups ([G, T/G, D], G = the data-parallel width
+    `logical_axis_size("batch")`, 1 when it does not divide T), and each
+    group has its own capacity C = max(int(cf * (T/G) * k / E), k):
+    earlier tokens of a group win its slots, overflow is dropped (its
+    output 0).  Without a mesh G = 1, one global capacity.  On DTensors
+    each rank runs its own groups on local tensors, with the router and
+    the experts gathered whole (weight-gathered experts), and the aux
+    loss's means taken over every group.  Routing ties: `torch.topk` and
+    `jax.lax.top_k` may order equal router probabilities differently,
+    but random float router logits make a tie a measure-zero event, so
+    the tests never meet one.
     """
     b, s, d = h.shape
     t = b * s
     e, k = cfg.n_experts, cfg.moe_top_k
-    cap = moe_capacity(t, cfg)
-    x = h.reshape(t, d)
+    g = logical_axis_size("batch")
+    if t % g != 0:
+        g = 1
+    tl = t // g  # tokens per group
+    cap = max(int(cfg.capacity_factor * tl * k / e), k)
+    x = shard(h.reshape(g, tl, d), "batch", None, "embed")
+    names = ("router",) + (("w_gate", "w_up", "w_down")
+                           if cfg.mlp_act == "swiglu" else ("w_in", "w_out"))
+    ws = {n: getattr(p, n) for n in names}
+    if not is_dtensor(x):
+        y, probs, idx = _moe_groups(x, ws, cfg, cap)
+        if aux is not None:
+            me = probs.mean((0, 1))  # [E]
+            ce = F.one_hot(idx[..., 0], e).to(F32).mean((0, 1))
+            aux["moe_aux"] = aux.get("moe_aux", 0.0) + e * (me * ce).sum()
+        return y.reshape(b, s, d)
 
-    logits = torch.matmul(x.to(F32), p.router.to(F32))
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh, pl = x.device_mesh, x.placements
+    # where the groups are split, each rank's expert gradients are its
+    # groups' part of the sum
+    part = [Partial() if isinstance(q, Shard) else Replicate() for q in pl]
+    y, probs, idx = _moe_groups(
+        x.to_local(), {n: w.full_tensor(grad_placements=part)
+                       if is_dtensor(w) else w for n, w in ws.items()},
+        cfg, cap)
+    if aux is not None:
+        # means over every group: local sums, summed over the ranks
+        # holding other groups, over the group count
+        def total(v):
+            return DTensor.from_local(v, mesh, part).full_tensor()
+
+        n = g * tl
+        me = total(probs.sum((0, 1))) / n
+        ce = total(F.one_hot(idx[..., 0], e).to(F32).sum((0, 1))) / n
+        aux["moe_aux"] = aux.get("moe_aux", 0.0) + e * (me * ce).sum()
+    # back to [B, S, D]: the groups' split becomes a batch split when it
+    # cuts between sequences, else the groups are gathered first
+    n = g // y.shape[0]
+    if n > 1 and b % n:
+        y = DTensor.from_local(y, mesh, pl).full_tensor()
+        n, pl = 1, [Replicate()] * mesh.ndim
+    y = DTensor.from_local(y.reshape(b // n, s, d), mesh, pl)
+    return shard(y, "batch", "seq", "embed")
+
+
+def _moe_groups(x: torch.Tensor, ws: dict, cfg: ModelConfig, cap: int):
+    """Dispatch, experts and combine over plain groups x [G, Tl, D] with
+    per-group capacity `cap`.  Returns (y [G, Tl, D], router probs
+    [G, Tl, E], top-k indices [G, Tl, k])."""
+    g, tl, d = x.shape
+    e, k = cfg.n_experts, cfg.moe_top_k
+    logits = torch.matmul(x.to(F32), ws["router"].to(F32))
     probs = torch.softmax(logits, dim=-1)
-    gate, idx = torch.topk(probs, k, dim=-1)  # [T, k], descending
+    gate, idx = torch.topk(probs, k, dim=-1)  # [G, Tl, k], descending
     gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
 
-    if aux is not None:
-        # load-balancing auxiliary loss terms (Switch/GShard)
-        me = probs.mean(0)  # [E]
-        ce = F.one_hot(idx[:, 0], e).to(F32).mean(0)
-        aux["moe_aux"] = aux.get("moe_aux", 0.0) + e * (me * ce).sum()
-
-    flat = F.one_hot(idx, e).reshape(t * k, e)  # [T*k, E]
-    # priority order: earlier tokens win capacity slots
-    slot = ((torch.cumsum(flat, 0) - flat) * flat).sum(-1)  # [T*k]
-    e_sel = idx.reshape(t * k)
+    flat = F.one_hot(idx, e).reshape(g, tl * k, e)  # [G, Tl*k, E]
+    # priority order within the group: earlier tokens win capacity slots
+    slot = ((torch.cumsum(flat, 1) - flat) * flat).sum(-1)  # [G, Tl*k]
+    e_sel = idx.reshape(g, tl * k)
     keep = slot < cap
+    gi = torch.arange(g, device=x.device)[:, None].expand(g, tl * k)
+    sel = (gi[keep], e_sel[keep], slot[keep])
 
-    xrep = x[:, None, :].expand(t, k, d).reshape(t * k, d)
-    buf = torch.zeros((e, cap, d), dtype=h.dtype, device=h.device)
-    buf[e_sel[keep], slot[keep]] = xrep[keep]
+    xrep = x[:, :, None, :].expand(g, tl, k, d).reshape(g, tl * k, d)
+    buf = torch.zeros((g, e, cap, d), dtype=x.dtype, device=x.device)
+    buf[sel] = xrep[keep]
+    # the experts' products over every group's slots at once: [E, G*C, D]
+    be = buf.transpose(0, 1).reshape(e, g * cap, d)
 
     if cfg.mlp_act == "swiglu":
-        g_ = torch.bmm(buf, p.w_gate).to(F32)
-        u_ = torch.bmm(buf, p.w_up).to(F32)
-        a_ = (F.silu(g_) * u_).to(h.dtype)
-        o_ = torch.bmm(a_, p.w_down).to(h.dtype)
+        g_ = torch.bmm(be, ws["w_gate"]).to(F32)
+        u_ = torch.bmm(be, ws["w_up"]).to(F32)
+        a_ = (F.silu(g_) * u_).to(x.dtype)
+        o_ = torch.bmm(a_, ws["w_down"]).to(x.dtype)
     else:
-        a_ = _gelu(torch.bmm(buf, p.w_in).to(F32)).to(h.dtype)
-        o_ = torch.bmm(a_, p.w_out).to(h.dtype)
+        a_ = _gelu(torch.bmm(be, ws["w_in"]).to(F32)).to(x.dtype)
+        o_ = torch.bmm(a_, ws["w_out"]).to(x.dtype)
+    o_ = o_.view(e, g, cap, d).transpose(0, 1)
 
-    y_slots = torch.zeros((t * k, d), dtype=h.dtype, device=h.device)
-    y_slots[keep] = o_[e_sel[keep], slot[keep]]
-    y_slots = (y_slots.to(F32) * gate.reshape(t * k, 1)).to(h.dtype)
-    return y_slots.reshape(t, k, d).sum(1).reshape(b, s, d)
+    y_slots = torch.zeros((g, tl * k, d), dtype=x.dtype, device=x.device)
+    y_slots[keep] = o_[sel]
+    y_slots = (y_slots.to(F32) * gate.reshape(g, tl * k, 1)).to(x.dtype)
+    return y_slots.reshape(g, tl, k, d).sum(2), probs, idx

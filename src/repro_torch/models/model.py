@@ -22,14 +22,26 @@ Entry points:
                                     aux), each block and chunk under the
                                     config's remat policy
   init_cache / prefill / decode  -- serving paths
+  param_axes / cache_axes        -- each leaf's logical axes (the
+                                    reference's, blocks axis dropped);
+                                    `*_pspecs` map them through a rule set
+  shard_params                   -- the parameters as DTensors on a mesh
+
+Under `sharding.use_rules(rules, mesh)` with DTensor parameters the same
+code runs sharded: activations carry the reference's `shard` sites,
+plain tensors (tokens, positions, masks) count as replicated, a new
+cache is laid out by `cache_pspecs`, and the BitLinear FFN and the CAM
+head call their kernels on the local shards (`models/binary_lm.py`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
@@ -39,6 +51,8 @@ from repro_torch.models import binary_lm
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.pipeline import resolve_device
+from repro_torch.sharding import rules as R
+from repro_torch.sharding import shard
 
 F32 = torch.float32
 FULL_WINDOW = 1 << 30
@@ -134,6 +148,84 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 
 # ---------------------------------------------------------------------------
+# Logical axes and placement
+# ---------------------------------------------------------------------------
+def _sublayer_axes(cfg: ModelConfig, kind: str, use_moe: bool) -> dict:
+    norm_ax = {"scale": (None,)}
+    if cfg.norm == "layernorm":
+        norm_ax["bias"] = (None,)
+    p = {"norm1": norm_ax}
+    if kind == "attn":
+        p["attn"] = L.attention_param_axes(cfg)
+    else:
+        p["mamba"] = S.mamba_param_axes(cfg)
+    if kind == "attn" or cfg.family == "hybrid":
+        p["norm2"] = norm_ax
+        p["ffn"] = L.moe_param_axes(cfg) if use_moe else L.mlp_param_axes(cfg)
+    return p
+
+
+def _flat(tree: dict, prefix: str = "") -> dict:
+    """Nested dicts of axis tuples -> {dotted name: tuple}."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    """{state-dict name: logical-axis tuple} for every `CausalLM`
+    parameter (and the CAM head's threshold buffer): the reference's
+    `param_axes` under the port's names, without its leading blocks
+    axis (the port's blocks are unstacked)."""
+    pat = cfg.pattern()
+    sub = {f"sub{i}": _sublayer_axes(cfg, pat.kinds[i], pat.moe_mask[i])
+           for i in range(pat.size)}
+    tree = {"embed": ("p_embed_v", "p_embed_d"),
+            "blocks": {str(b): sub for b in range(cfg.blocks)},
+            "final_norm": {"scale": (None,)}
+            | ({"bias": (None,)} if cfg.norm == "layernorm" else {})}
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = ("p_mlp_d", "p_vocab")
+    if cfg.cam_head:
+        tree["cam_head"] = binary_lm.cam_head_axes(cfg)
+    return _flat(tree)
+
+
+def param_pspecs(cfg: ModelConfig, rules) -> dict:
+    """{state-dict name: PartitionSpec} under `rules`."""
+    return {k: rules.spec(*ax) for k, ax in param_axes(cfg).items()}
+
+
+def shard_params(params: CausalLM, mesh, rules) -> CausalLM:
+    """Every parameter and buffer of `params` replaced, in place, by a
+    DTensor on `mesh` laid out by `param_pspecs` (sanitised: a dim the
+    mesh does not divide stays whole).  Every rank must hold the same
+    full tensors.  Returns `params`."""
+    specs = param_pspecs(params.cfg, rules)
+    with torch.no_grad():
+        for name, t in list(params.state_dict(keep_vars=True).items()):
+            owner, _, leaf = name.rpartition(".")
+            mod = params.get_submodule(owner) if owner else params
+            dt = R.distribute(t.detach(), specs[name], mesh)
+            if isinstance(t, nn.Parameter):
+                setattr(mod, leaf, nn.Parameter(dt, requires_grad=
+                                                t.requires_grad))
+            else:
+                mod.register_buffer(leaf, dt)
+    return params
+
+
+def _sharded(params) -> contextlib.AbstractContextManager:
+    """Inside: plain tensors meeting a DTensor count as replicated, when
+    the parameters are DTensors; else nothing changes."""
+    return R.replicated_plain([params.embed])
+
+
+# ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
 # matrix products, the outputs that remat "dots" keeps (the reference's
@@ -218,6 +310,9 @@ def _stack(params: CausalLM, cfg: ModelConfig, h, positions, cache,
     block_fn = (_remat_wrap(cfg, _run_block) if torch.is_grad_enabled()
                 else _run_block)
     for b, block in enumerate(params.blocks):
+        # sequence-parallel residual carry (no-op unless the active rules
+        # map "act_seq" to a mesh axis -- see TRAIN_SP_RULES)
+        h = shard(h, "batch", "act_seq", "embed")
         h, block_cache, aux = block_fn(
             block, cfg, h, positions, inv_freq,
             cache[b] if cache is not None else None, cache_index,
@@ -231,8 +326,18 @@ def _stack(params: CausalLM, cfg: ModelConfig, h, positions, cache,
 
 def _embed_in(params: CausalLM, cfg: ModelConfig, tokens, embeds):
     if embeds is not None:
-        return embeds.to(cfg.torch_dtype)
-    return params.embed[tokens]
+        h = embeds.to(cfg.torch_dtype)
+    else:
+        h = _embedding(params, tokens)
+    return shard(h, "batch", "seq", "embed")
+
+
+def _embedding(params: CausalLM, tokens) -> torch.Tensor:
+    """Rows of the embedding table (the tokens replicated on the table's
+    mesh when it is a DTensor, so its backward sees DTensors only)."""
+    if R.is_dtensor(params.embed):
+        tokens = R.as_dtensor(tokens, params.embed.device_mesh)
+    return F.embedding(tokens, params.embed)
 
 
 def _lm_head(params: CausalLM, cfg: ModelConfig) -> torch.Tensor:
@@ -243,7 +348,7 @@ def _lm_head(params: CausalLM, cfg: ModelConfig) -> torch.Tensor:
 
 def _logits(params: CausalLM, cfg: ModelConfig, h) -> torch.Tensor:
     """[..., D] -> float32 [..., V] through the vocab projection."""
-    return torch.matmul(h, _lm_head(params, cfg)).to(F32)
+    return L._matmul(h, _lm_head(params, cfg)).to(F32)
 
 
 def final_hidden(params: CausalLM, cfg: ModelConfig, tokens=None,
@@ -263,9 +368,10 @@ def forward(params: CausalLM, cfg: ModelConfig, tokens=None, embeds=None,
             positions=None, collect_aux: bool = False):
     """Training-mode forward: (full-sequence float32 logits [B, S, V],
     the summed MoE aux loss)."""
-    h, aux = final_hidden(params, cfg, tokens, embeds, positions,
-                          collect_aux)
-    return _logits(params, cfg, h), aux
+    with _sharded(params):
+        h, aux = final_hidden(params, cfg, tokens, embeds, positions,
+                              collect_aux)
+        return shard(_logits(params, cfg, h), "batch", "seq", "vocab"), aux
 
 
 def chunked_loss(params: CausalLM, cfg: ModelConfig, h, labels,
@@ -289,20 +395,30 @@ def chunked_loss(params: CausalLM, cfg: ModelConfig, h, labels,
 
 def _chunk_ce(h, labels, head) -> torch.Tensor:
     """Summed cross entropy of one chunk: logsumexp - gold, float32."""
-    logits = torch.matmul(h, head).to(F32)
-    gold = logits.gather(-1, labels[..., None].long())[..., 0]
-    return (torch.logsumexp(logits, -1) - gold).sum()
+    logits = shard(L._matmul(h, head).to(F32), "batch", "seq", "vocab")
+    if not R.is_dtensor(logits):
+        gold = logits.gather(-1, labels[..., None].long())[..., 0]
+        return (torch.logsumexp(logits, -1) - gold).sum()
+    # over a vocab split: the gold logit as a masked sum, logsumexp as
+    # max + log-sum-exp of the rest (the max without gradient, as
+    # logsumexp's own)
+    onehot = F.one_hot(labels.long(), logits.shape[-1]).to(F32)
+    gold = (logits * onehot).sum(-1)
+    m = logits.detach().amax(-1, keepdim=True)
+    lse = (logits - m).exp().sum(-1).log() + m[..., 0]
+    return (lse - gold).sum()
 
 
 def loss_fn(params: CausalLM, cfg: ModelConfig, batch: dict,
             aux_weight: float = 0.01):
     """batch: {"tokens" | "embeds", "labels"} (tensors on the model's
     device) -> (ce + aux_weight * MoE aux, {"ce", "moe_aux"})."""
-    h, aux = final_hidden(params, cfg, batch.get("tokens"),
-                          batch.get("embeds"),
-                          collect_aux=cfg.n_experts > 0)
-    ce = chunked_loss(params, cfg, h, batch["labels"])
-    return ce + aux_weight * aux, {"ce": ce, "moe_aux": aux}
+    with _sharded(params):
+        h, aux = final_hidden(params, cfg, batch.get("tokens"),
+                              batch.get("embeds"),
+                              collect_aux=cfg.n_experts > 0)
+        ce = chunked_loss(params, cfg, h, batch["labels"])
+        return ce + aux_weight * aux, {"ce": ce, "moe_aux": aux}
 
 
 # ---------------------------------------------------------------------------
@@ -325,7 +441,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     """A list over blocks of {sub_i: cache}: attention sublayers hold
     k/v [B, L, G, dh] and pos [B, L] (-1 = empty; L is max_len, capped at
     the window), mamba sublayers their conv taps and float32 state.
-    `device` None means the CUDA card."""
+    `device` None means the CUDA card.
+    Inside `sharding.use_rules(rules, mesh)` each leaf is a DTensor laid
+    out by `cache_pspecs`."""
     pat = cfg.pattern()
     device = resolve_device(device)
 
@@ -336,7 +454,41 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                             else S.init_mamba_cache(cfg, batch, device=device))
                 for i in range(pat.size)}
 
-    return [one_block() for _ in range(cfg.blocks)]
+    cache = [one_block() for _ in range(cfg.blocks)]
+    rules, mesh = R.current_rules(), R.current_mesh()
+    if rules is not None and mesh is not None:
+        specs = cache_pspecs(cfg, rules)
+        cache = [{sub: {k: R.distribute(t, specs[b][sub][k], mesh)
+                        for k, t in leaves.items()}
+                  for sub, leaves in blk.items()}
+                 for b, blk in enumerate(cache)]
+    return cache
+
+
+def cache_axes(cfg: ModelConfig) -> list:
+    """Logical axes of the cache: a list over blocks of {sub_i: {leaf:
+    axes}}, the reference's `cache_axes` without its blocks axis."""
+    pat = cfg.pattern()
+    block = {}
+    for i in range(pat.size):
+        if pat.kinds[i] == "attn":
+            block[f"sub{i}"] = {
+                "k": ("batch", "kv_seq", "kv_heads", None),
+                "v": ("batch", "kv_seq", "kv_heads", None),
+                "pos": ("batch", "kv_seq"),
+            }
+        else:
+            block[f"sub{i}"] = {
+                "conv": ("batch", None, "mlp"),
+                "h": ("batch", "mlp", None),
+            }
+    return [block for _ in range(cfg.blocks)]
+
+
+def cache_pspecs(cfg: ModelConfig, rules) -> list:
+    """`cache_axes` as PartitionSpecs under `rules`."""
+    return [{sub: {k: rules.spec(*ax) for k, ax in leaves.items()}
+             for sub, leaves in blk.items()} for blk in cache_axes(cfg)]
 
 
 @torch.no_grad()
@@ -353,10 +505,13 @@ def prefill(params: CausalLM, cfg: ModelConfig, tokens=None, embeds=None,
     positions = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s)
     cache = init_cache(cfg, b, max_len if max_len is not None else s + 64,
                        dev)
-    h = _embed_in(params, cfg, tokens, embeds)
-    h, new_cache, _ = _stack(params, cfg, h, positions, cache, None, False)
-    h = L.apply_norm(params.final_norm, cfg, h[:, -1:, :])
-    return _logits(params, cfg, h)[:, 0], new_cache
+    with _sharded(params):
+        h = _embed_in(params, cfg, tokens, embeds)
+        h, new_cache, _ = _stack(params, cfg, h, positions, cache, None,
+                                 False)
+        h = L.apply_norm(params.final_norm, cfg, h[:, -1:, :])
+        return shard(_logits(params, cfg, h)[:, 0], "batch",
+                     "vocab"), new_cache
 
 
 @torch.no_grad()
@@ -369,16 +524,20 @@ def decode(params: CausalLM, cfg: ModelConfig, cache: list, tokens, pos: int):
     returned.  Returns (logits [B, V], cache): the CAM head's votes (or
     exact readout) when cfg.cam_head, else the vocab projection.
     """
-    if cfg.embeds_input and tokens.ndim == 3:
-        h = tokens.to(cfg.torch_dtype)
-    else:
-        h = params.embed[tokens]
-    b = h.shape[0]
-    positions = torch.full((b, 1), int(pos), dtype=torch.int32,
-                           device=h.device)
-    h, new_cache, _ = _stack(params, cfg, h, positions, cache, pos, False)
-    h = L.apply_norm(params.final_norm, cfg, h)
-    if cfg.cam_head:
-        return binary_lm.cam_head_logits(params.cam_head, cfg,
-                                         h[:, 0]), new_cache
-    return _logits(params, cfg, h)[:, 0], new_cache
+    with _sharded(params):
+        if cfg.embeds_input and tokens.ndim == 3:
+            h = tokens.to(cfg.torch_dtype)
+        else:
+            h = _embedding(params, tokens)
+        h = shard(h, "batch", "seq", "embed")
+        b = h.shape[0]
+        positions = torch.full((b, 1), int(pos), dtype=torch.int32,
+                               device=params.device)
+        h, new_cache, _ = _stack(params, cfg, h, positions, cache, pos,
+                                 False)
+        h = L.apply_norm(params.final_norm, cfg, h)
+        if cfg.cam_head:
+            logits = binary_lm.cam_head_logits(params.cam_head, cfg, h[:, 0])
+        else:
+            logits = _logits(params, cfg, h)[:, 0]
+        return shard(logits, "batch", "vocab"), new_cache

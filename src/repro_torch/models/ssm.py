@@ -27,6 +27,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import _matmul, _normal_, _param
+from repro_torch.sharding import shard
 
 F32 = torch.float32
 
@@ -64,6 +65,20 @@ class Mamba(nn.Module):
             self.A_log.copy_(torch.log(torch.arange(
                 1, n + 1, dtype=F32, device=self.A_log.device)))
             self.D.fill_(1.0)
+
+
+def mamba_param_axes(cfg: ModelConfig) -> dict:
+    return {
+        "in_proj": ("p_ssm_d", "p_ssm_inner"),
+        "conv_w": (None, "p_ssm_inner"),
+        "conv_b": ("p_ssm_inner",),
+        "x_proj": ("p_ssm_inner", None),
+        "dt_proj": (None, "p_ssm_inner"),
+        "dt_bias": ("p_ssm_inner",),
+        "A_log": ("p_ssm_inner", None),
+        "D": ("p_ssm_inner",),
+        "out_proj": ("p_ssm_inner", "p_ssm_d"),
+    }
 
 
 def init_mamba_cache(cfg: ModelConfig, batch: int, dtype=None,
@@ -105,14 +120,15 @@ def mamba_block(p: Mamba, cfg: ModelConfig, x: torch.Tensor, *,
 
     xz = _matmul(x, p.in_proj).to(x.dtype)
     x1, z = torch.chunk(xz, 2, dim=-1)
+    x1 = shard(x1, "batch", "seq", "mlp")
 
     conv_state = cache["conv"] if cache is not None else None
     x1, new_conv = _causal_conv(x1, p.conv_w, p.conv_b, conv_state)
     x1 = F.silu(x1.to(F32)).to(x.dtype)
 
-    xdbc = torch.matmul(x1.to(F32), p.x_proj.to(F32))
+    xdbc = _matmul(x1.to(F32), p.x_proj.to(F32))
     dt_low, bmat, cmat = torch.split(xdbc, [r, n, n], dim=-1)
-    dt = F.softplus(torch.matmul(dt_low, p.dt_proj.to(F32))
+    dt = F.softplus(_matmul(dt_low, p.dt_proj.to(F32))
                     + p.dt_bias.to(F32))  # [B, S, din] f32
     a = -torch.exp(p.A_log)  # [din, N] f32
 
@@ -129,7 +145,8 @@ def mamba_block(p: Mamba, cfg: ModelConfig, x: torch.Tensor, *,
 
     y = y + p.D.to(F32) * xs
     y = (y * F.silu(z.to(F32))).to(x.dtype)
-    out = _matmul(y, p.out_proj).to(x.dtype)
+    y = shard(y, "batch", "seq", "mlp")
+    out = shard(_matmul(y, p.out_proj).to(x.dtype), "batch", "seq", "embed")
 
     new_cache = None
     if cache is not None:

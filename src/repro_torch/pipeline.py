@@ -72,6 +72,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -85,7 +86,7 @@ from repro_torch.core.device_model import AnalogParams, NoiseModel
 from repro_torch.core.ensemble import CAMEnsembleHead, EnsembleConfig, build_head
 from repro_torch.core.physics import SearchPhysics
 from repro_torch.kernels import fused_conv, fused_mlp, ops
-from repro_torch.spec import InferenceSpec
+from repro_torch.spec import InferenceSpec, legacy_entry_spec
 
 
 def resolve_device(device=None) -> torch.device:
@@ -188,6 +189,23 @@ class ConvFront:
         return dataclasses.replace(
             self, ws=tuple(w.to(device) for w in self.ws),
             cs=tuple(c.to(device) for c in self.cs))
+
+
+_LEGACY_WARNED: set = set()
+
+
+def _warn_legacy(name: str) -> None:
+    """One DeprecationWarning per legacy entry point per process."""
+    if name in _LEGACY_WARNED:
+        return
+    _LEGACY_WARNED.add(name)
+    warnings.warn(
+        f"CompiledPipeline.{name}() is a deprecated shim over "
+        f"run(x, InferenceSpec(...)) -- see repro_torch.spec."
+        "legacy_entry_spec and the README migration table",
+        DeprecationWarning,
+        stacklevel=3,
+    )
 
 
 @dataclasses.dataclass
@@ -457,10 +475,16 @@ class CompiledPipeline:
             ]
         return tuple(specs)
 
+    #: legacy entry names accepted by warmup(entries=) (deprecated --
+    #: pass specs= instead; see repro_torch.spec.legacy_entry_spec)
+    WARMUP_ENTRIES = ("votes", "votes_noisy", "votes_each", "votes_mc",
+                      "votes_mc_each", "votes_mc_each_sum")
+
     def warmup(self, max_batch: int, *,
                specs: Optional[Sequence[InferenceSpec]] = None,
                key: Optional[torch.Generator] = None,
-               mc_samples: Optional[int] = None
+               mc_samples: Optional[int] = None,
+               entries: Optional[Sequence[str]] = None
                ) -> dict[tuple[InferenceSpec, int], float]:
         """Run one dummy batch per (spec, bucket) a serving loop can meet.
 
@@ -471,8 +495,22 @@ class CompiledPipeline:
         specs defaults to `default_warmup_specs(mc_samples)`.  The dummy
         batches are all ones (±1 activations for an MLP, full-intensity
         pixels for a CNN); batch draws come from `key` (default a
-        generator seeded 0), per-request keys are (0, row).
+        generator seeded 0), per-request keys are (0, row).  `entries`:
+        DEPRECATED legacy entry names, translated through
+        `spec.legacy_entry_spec` (the `votes_mc*` ones with
+        `mc_samples`); mutually exclusive with specs.
         """
+        if entries is not None:
+            if specs is not None:
+                raise ValueError("pass specs= or legacy entries=, not both")
+            _warn_legacy("warmup(entries=)")
+            unknown = set(entries) - set(self.WARMUP_ENTRIES)
+            if unknown:
+                raise ValueError(f"unknown warmup entries {sorted(unknown)}")
+            specs = tuple(
+                legacy_entry_spec(
+                    e, mc_samples if e.startswith("votes_mc") else None)
+                for e in entries)
         specs = self.default_warmup_specs(mc_samples) if specs is None \
             else specs
         for spec in specs:  # capability check before any work
@@ -498,6 +536,105 @@ class CompiledPipeline:
                     torch.cuda.synchronize(self.device)
                 times[(spec, b)] = time.perf_counter() - t0
         return times
+
+    # ------------------------------------------------------------------
+    # DEPRECATED legacy entry points -- thin shims over run()
+    # ------------------------------------------------------------------
+    def votes(self, x_pm1, key: Optional[torch.Generator] = None):
+        """DEPRECATED shim: `run(x, InferenceSpec())`, or with `key` (a
+        generator) one batch-level silicon draw (`noise="batch"`)."""
+        _warn_legacy("votes")
+        if key is None:
+            return self.run(x_pm1, InferenceSpec())
+        return self.run(x_pm1, InferenceSpec(noise="batch"), key=key)
+
+    def votes_packed(self, x_packed: torch.Tensor,
+                     key: Optional[torch.Generator] = None) -> torch.Tensor:
+        """DEPRECATED shim: `run_packed` with the `votes` specs."""
+        _warn_legacy("votes_packed")
+        if key is None:
+            return self.run_packed(x_packed, InferenceSpec())
+        return self.run_packed(x_packed, InferenceSpec(noise="batch"),
+                               key=key)
+
+    def votes_mc(self, x_pm1, key: torch.Generator,
+                 n_samples: int) -> torch.Tensor:
+        """DEPRECATED shim: `InferenceSpec(noise="batch", mc_samples=S)`
+        -> [S, B, C] Monte-Carlo silicon votes (HD computed once)."""
+        _warn_legacy("votes_mc")
+        return self.run(x_pm1, InferenceSpec(noise="batch",
+                                             mc_samples=int(n_samples)),
+                        key=key)
+
+    def votes_each(self, x_pm1, keys) -> torch.Tensor:
+        """DEPRECATED shim: `InferenceSpec(noise="per_request")`, row i
+        drawn from its own key words keys[i]."""
+        _warn_legacy("votes_each")
+        return self.run(x_pm1, InferenceSpec(noise="per_request"),
+                        keys=keys)
+
+    def votes_mc_each(self, x_pm1, keys, n_samples: int) -> torch.Tensor:
+        """DEPRECATED shim: `InferenceSpec(noise="per_request",
+        mc_samples=S)` -> [S, B, C]."""
+        _warn_legacy("votes_mc_each")
+        return self.run(x_pm1, InferenceSpec(noise="per_request",
+                                             mc_samples=int(n_samples)),
+                        keys=keys)
+
+    def votes_mc_each_sum(self, x_pm1, keys, n_samples: int) -> torch.Tensor:
+        """DEPRECATED shim: the per-request MC spec with
+        reduction="sum"."""
+        _warn_legacy("votes_mc_each_sum")
+        return self.run(x_pm1, InferenceSpec(noise="per_request",
+                                             mc_samples=int(n_samples),
+                                             reduction="sum"),
+                        keys=keys)
+
+    def predict_each(self, x_pm1, keys) -> torch.Tensor:
+        """DEPRECATED shim: `InferenceSpec(noise="per_request",
+        reduction="argmax")`."""
+        _warn_legacy("predict_each")
+        return self.run(x_pm1, InferenceSpec(noise="per_request",
+                                             reduction="argmax"),
+                        keys=keys)
+
+    def cum_votes(self, x_pm1,
+                  key: Optional[torch.Generator] = None) -> torch.Tensor:
+        """DEPRECATED shim: per-pass cumulative votes [P, B, C].
+
+        key given -> `InferenceSpec(noise="batch", cumulative=True)`, one
+        silicon realization's staircase; key None ->
+        `InferenceSpec(cumulative=True)`, the exact noiseless staircase.
+        A noise-compiled pipeline must be given a key (each call is one
+        silicon realization)."""
+        _warn_legacy("cum_votes")
+        if key is None:
+            if self.physics is not None and not self.physics.is_noiseless:
+                raise ValueError(
+                    "cum_votes on a noise-compiled pipeline needs an "
+                    "explicit key (each call is one silicon realization); "
+                    "for the deterministic staircase run the explicit "
+                    'spec InferenceSpec(noise="off", cumulative=True) on '
+                    "a noiseless pipeline"
+                )
+            return self.run(x_pm1, InferenceSpec(cumulative=True))
+        return self.run(x_pm1, InferenceSpec(noise="batch", cumulative=True),
+                        key=key)
+
+    def predict(self, x_pm1,
+                key: Optional[torch.Generator] = None) -> torch.Tensor:
+        """DEPRECATED shim: `InferenceSpec(reduction="argmax")` (with
+        `key`, one batch-level silicon draw)."""
+        _warn_legacy("predict")
+        if key is None:
+            return self.run(x_pm1, InferenceSpec(reduction="argmax"))
+        return self.run(x_pm1, InferenceSpec(noise="batch",
+                                             reduction="argmax"), key=key)
+
+    def __call__(self, x_pm1,
+                 key: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Sugar for the deprecated `predict` shim."""
+        return self.predict(x_pm1, key)
 
     def to(self, device) -> "CompiledPipeline":
         """The same pipeline with every operand on `device` (self if it is

@@ -26,6 +26,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.pipeline import resolve_device
 from repro_torch.serve.steps import (greedy_sample, make_decode_step,
                                      make_prefill_step)
+from repro_torch.sharding.rules import is_dtensor
 
 
 @dataclasses.dataclass
@@ -72,7 +73,10 @@ class Engine:
     """Serves `params` (a `models.model.CausalLM`) under `cfg`.
 
     `device` None means the CUDA card (raising when there is none); the
-    parameters must already live on the engine's device.
+    parameters must already live on the engine's device.  With DTensor
+    parameters (`models.model.shard_params`), `generate` runs under
+    `sharding.use_rules(rules, mesh)` and every rank submits the same
+    requests; the logits are gathered whole for sampling.
     """
 
     def __init__(self, cfg: ModelConfig, params, ecfg: EngineConfig,
@@ -114,6 +118,8 @@ class Engine:
         return out
 
     def _next(self, logits: torch.Tensor) -> np.ndarray:
+        if is_dtensor(logits):  # sharded logits (a mesh): gathered whole
+            logits = logits.full_tensor()
         return greedy_sample(logits).cpu().numpy()
 
     def _run_batch(self, reqs: list[Request]) -> list[Result]:

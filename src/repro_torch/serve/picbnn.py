@@ -38,8 +38,17 @@ computed independently.
 `stats()` reports each model's served rate beside its Table-II
 silicon-equivalent rate (`layer_sizes=` or `silicon_cost=` at
 registration; `core/mapping.py`'s model of the 65 nm macro, not of the
-card).  What waits for a later slice, and how it fails: `fanout="spmd"`
-raises NotImplementedError.
+card).
+
+Fan-out over `devices`: "round_robin" runs each micro-batch whole on
+the next device; "spmd" splits each bucket-padded micro-batch along
+`PICBNN_SERVE_RULES`' batch axis (`sharding.batch_sharding` over
+`sharding.serve_mesh(devices)`: equal contiguous slices, so every
+bucket must divide by the device count), runs slice i on device i's
+pipeline and stream (kernels 3/4 as for any batch), gathers the votes
+on devices[0] and reads them back from there; its results carry
+device -1.  The server is one process driving each local device itself,
+so no process group is involved.
 """
 
 from __future__ import annotations
@@ -57,6 +66,7 @@ import torch
 from repro_torch.core import mapping
 from repro_torch.deploy import Deployment
 from repro_torch.pipeline import CompiledPipeline, next_bucket, resolve_device
+from repro_torch.sharding import rules as shrules
 from repro_torch.serve.scheduler import (
     BatchingPolicy,
     LatencySummary,
@@ -90,7 +100,7 @@ class ClassifyResult:
     latency_ms: float  # submit -> readback complete
     batch_size: int  # logical requests in the micro-batch served with
     bucket: int  # padded bucket the batch dispatched into
-    device: int  # ring index of the device that served it
+    device: int  # ring index of the device that served it (-1: spmd)
 
 
 class _Slab:
@@ -318,8 +328,11 @@ class ServerStats:
 class PicBnnServer:
     """Async micro-batching classification server over compiled pipelines.
 
-    devices : where batches run, round-robin; None means every CUDA device
-        (raises without CUDA), ["cpu"] runs the plain kernel versions.
+    devices : where batches run; None means every CUDA device (raises
+        without CUDA), ["cpu"] runs the plain kernel versions.
+    fanout : "round_robin" (each batch whole on the next device) or
+        "spmd" (each batch split over all of them; see the module
+        docstring).
     Thread model: N client threads call submit()/submit_many(); one
     dispatch thread coalesces, stages and launches; one completion thread
     waits on each batch's CUDA event and publishes results.  `close()`
@@ -330,12 +343,7 @@ class PicBnnServer:
                  devices: Optional[Sequence] = None,
                  fanout: str = "round_robin",
                  stats_window: int = 4096):
-        if fanout == "spmd":
-            raise NotImplementedError(
-                'fanout="spmd" (one batch sharded over the devices) waits '
-                "for the multi-card serving slice of the port"
-            )
-        if fanout != "round_robin":
+        if fanout not in ("round_robin", "spmd"):
             raise ValueError(f"unknown fanout {fanout!r}")
         if devices:
             self.devices = [resolve_device(d) for d in devices]
@@ -346,6 +354,11 @@ class PicBnnServer:
         self.policy = policy
         self.stats_window = stats_window
         self.fanout = fanout
+        self._mesh = None
+        self._batch_sharding = None
+        if fanout == "spmd":
+            self._mesh = shrules.serve_mesh(self.devices)
+            self._batch_sharding = shrules.batch_sharding(self._mesh)
         self._streams: list = []
         self._models: dict[str, _Model] = {}
         self._batcher = MicroBatcher(policy)
@@ -451,6 +464,19 @@ class PicBnnServer:
 
     def _warm_model(self, m: _Model) -> dict:
         times: dict = {}
+        if self.fanout == "spmd":
+            # the split placement dispatch uses: each bucket cut over the
+            # devices, every slice through its device's pipeline
+            for b in m.pipe.buckets_for(self.policy.max_batch):
+                x = np.ones((b, m.pipe.n_in), np.float32)
+                keys = np.zeros((b, 2), np.uint32) if m.silicon else None
+                t0 = time.perf_counter()
+                _, event, parts = self._launch_spmd(m, x, keys)
+                if event is not None:
+                    event.synchronize()
+                del parts
+                times[(m.spec, b)] = time.perf_counter() - t0
+            return times
         for pipe in m.pipes:
             for key, s in pipe.warmup(self.policy.max_batch,
                                       specs=(m.spec,)).items():
@@ -474,7 +500,16 @@ class PicBnnServer:
             return self
         if not self._models:
             raise RuntimeError("no models registered")
+        n_dev = len(self.devices)
         for m in self._models.values():
+            if self.fanout == "spmd":
+                odd = [b for b in m.pipe.buckets_for(self.policy.max_batch)
+                       if b % n_dev]
+                if odd:
+                    raise ValueError(
+                        f'fanout="spmd" splits each bucket over {n_dev} '
+                        f"devices; {m.model_id!r}'s buckets {odd} do not "
+                        "divide")
             if m.pipe.max_bucket is None:
                 continue
             need = next_bucket(self.policy.max_batch, m.pipe.min_bucket)
@@ -485,14 +520,7 @@ class PicBnnServer:
                     f"max_bucket {m.pipe.max_bucket}"
                 )
         self._streams = []
-        for dev in self.devices:
-            if dev.type == "cuda":
-                # the weights were copied on the default stream: finish
-                # that before the serving stream reads them
-                torch.cuda.synchronize(dev)
-                self._streams.append(torch.cuda.Stream(device=dev))
-            else:
-                self._streams.append(None)
+        self._ensure_streams()
         self._started = True
         self._dispatch_t = threading.Thread(
             target=self._dispatch_loop, name="picbnn-dispatch", daemon=True
@@ -503,6 +531,20 @@ class PicBnnServer:
         self._dispatch_t.start()
         self._complete_t.start()
         return self
+
+    def _ensure_streams(self) -> None:
+        """One serving stream per device entry (None on the CPU), made
+        once."""
+        if self._streams:
+            return
+        for dev in self.devices:
+            if dev.type == "cuda":
+                # the weights were copied on the default stream: finish
+                # that before the serving stream reads them
+                torch.cuda.synchronize(dev)
+                self._streams.append(torch.cuda.Stream(device=dev))
+            else:
+                self._streams.append(None)
 
     def close(self) -> None:
         """Drain admitted requests, complete in-flight batches, join."""
@@ -647,9 +689,50 @@ class PicBnnServer:
         tensor filled by a non-blocking copy that `event` (recorded after
         it) marks complete; on the CPU the votes are final and event None.
         """
+        votes = self._run_staged(pipe, spec, x, keys, stream)
+        return self._readback(votes, pipe.device, stream)
+
+    def _launch_spmd(self, m: _Model, x: np.ndarray,
+                     keys: Optional[np.ndarray]):
+        """`_launch` with the batch split over the devices: slice i
+        through device i's pipeline on its stream, the votes gathered on
+        devices[0] (its stream waiting for every other slice's) and read
+        back from there.
+
+        Returns (votes, event, parts): each slice's votes were allocated
+        on its own stream and are read on devices[0]'s, so the caller
+        holds `parts` until `event` completes; freed earlier, the caching
+        allocator could hand a block to the next batch on that stream
+        while this gather is still queued."""
+        self._ensure_streams()
+        split = self._batch_sharding.split
+        xs = split(torch.from_numpy(x))
+        ks = split(torch.from_numpy(keys)) if keys is not None \
+            else [None] * len(xs)
+        parts = [self._run_staged(pipe, m.spec, xi.numpy(),
+                                  None if ki is None else ki.numpy(), st)
+                 for pipe, st, xi, ki in zip(m.pipes, self._streams, xs, ks)]
+        dev0, st0 = self.devices[0], self._streams[0]
+        if dev0.type != "cuda":
+            return torch.cat([v.to(dev0) for v in parts]), None, None
+        for dev, st in zip(self.devices, self._streams):
+            if st is not None and st is not st0:
+                with torch.cuda.device(dev):
+                    done = torch.cuda.Event()
+                    done.record(st)
+                st0.wait_event(done)
+        with torch.cuda.device(dev0), torch.cuda.stream(st0):
+            votes = torch.cat([v.to(dev0, non_blocking=True) for v in parts])
+        return (*self._readback(votes, dev0, st0), parts)
+
+    def _run_staged(self, pipe: CompiledPipeline, spec: InferenceSpec,
+                    x: np.ndarray, keys: Optional[np.ndarray], stream):
+        """`x` (and key words) staged on the pipeline's device through
+        pinned host memory, then run on `stream`; returns the votes on
+        the device (final on the CPU)."""
         dev = pipe.device
         if dev.type != "cuda":
-            return pipe.run(torch.from_numpy(x), spec, keys=keys), None
+            return pipe.run(torch.from_numpy(x), spec, keys=keys)
         with torch.cuda.device(dev), torch.cuda.stream(stream):
             # pinned blocks come from PyTorch's caching host allocator,
             # which holds a block back until the copies that used it have
@@ -663,7 +746,15 @@ class PicBnnServer:
                                  pin_memory=True)
                 kh.numpy()[...] = keys
                 kd = kh.to(dev, non_blocking=True)
-            votes = pipe.run(xd, spec, keys=kd)
+            return pipe.run(xd, spec, keys=kd)
+
+    @staticmethod
+    def _readback(votes: torch.Tensor, dev: torch.device, stream):
+        """(votes, None) on the CPU; on a card the pinned host copy and
+        the event recorded after it on `stream`."""
+        if dev.type != "cuda":
+            return votes, None
+        with torch.cuda.device(dev), torch.cuda.stream(stream):
             vh = torch.empty(votes.shape, dtype=votes.dtype, pin_memory=True)
             vh.copy_(votes, non_blocking=True)
             event = torch.cuda.Event()
@@ -691,10 +782,15 @@ class PicBnnServer:
             t_subs[pos:pos + k] = slab.t_submit
             placed.append((slab, s.lo, pos, k))
             pos += k
-        dev_idx = self._next_dev
-        self._next_dev = (self._next_dev + 1) % len(self.devices)
-        votes, event = self._launch(m.pipes[dev_idx], m.spec, x, keys,
-                                    self._streams[dev_idx])
+        if self.fanout == "spmd":
+            dev_idx = -1
+            votes, event, hold = self._launch_spmd(m, x, keys)
+        else:
+            dev_idx = self._next_dev
+            self._next_dev = (self._next_dev + 1) % len(self.devices)
+            votes, event = self._launch(m.pipes[dev_idx], m.spec, x, keys,
+                                        self._streams[dev_idx])
+            hold = None
         batch = _Batch(m.model_id, n, bucket, dev_idx, t_dispatch, t_subs)
         for slab, lo, bpos, k in placed:
             slab.spans.append((batch, lo, bpos, k))
@@ -704,7 +800,7 @@ class PicBnnServer:
         with self._inflight_cond:
             while len(self._inflight) >= self.policy.max_inflight:
                 self._inflight_cond.wait()
-            self._inflight.append((batch, votes, event))
+            self._inflight.append((batch, votes, event, hold))
             self._inflight_cond.notify_all()
 
     def _complete_loop(self) -> None:
@@ -716,10 +812,11 @@ class PicBnnServer:
                 self._inflight_cond.notify_all()
             if item is None:
                 break
-            batch, votes, event = item
+            batch, votes, event, hold = item
             try:
                 if event is not None:
                     event.synchronize()
+                del hold  # the gather that read these has completed
                 votes_np = votes[:batch.n].numpy().copy()  # drop pad rows
                 batch.votes = votes_np
                 batch.preds = votes_np.argmax(-1)

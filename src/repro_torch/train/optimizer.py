@@ -26,6 +26,8 @@ from typing import Any, Mapping
 import torch
 from torch import nn
 
+from repro_torch.sharding.rules import replicated_plain
+
 F32 = torch.float32
 
 
@@ -71,7 +73,8 @@ def init_opt_state(cfg: OptimizerConfig, params) -> dict[str, Any]:
     every parameter, each on its parameter's device."""
     named = named_params(params)
     first = next(iter(named.values()))
-    zeros = lambda p: torch.zeros(p.shape, dtype=F32, device=p.device)
+    # (zeros_like keeps a DTensor parameter's placements)
+    zeros = lambda p: torch.zeros_like(p.detach(), dtype=F32)
     state = {
         "m": {k: zeros(p) for k, p in named.items()},
         "v": {k: zeros(p) for k, p in named.items()},
@@ -96,8 +99,14 @@ def apply_updates(cfg: OptimizerConfig, params, grads, state):
     """One AdamW step, in place: `params` (a module or a dict of tensors)
     take `master.to(p.dtype)`, the state its new moments, masters and
     step.  grads: a dict by parameter name.  Returns (params, state,
-    {"grad_norm", "lr"})."""
+    {"grad_norm", "lr"}).  DTensor parameters, moments and masters are
+    updated shard by shard (the norm is summed over every shard)."""
     named = named_params(params)
+    with replicated_plain(named.values()):
+        return _apply_updates(cfg, named, params, grads, state)
+
+
+def _apply_updates(cfg, named, params, grads, state):
     step = state["step"] + 1
     gnorm = global_norm(grads)
     scale = torch.where(gnorm > cfg.grad_clip,

@@ -25,6 +25,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as M
 from repro_torch.pipeline import resolve_device
+from repro_torch.sharding.rules import replicated_plain
 from repro_torch.train import optimizer as O
 from repro_torch.train.grad_compress import (CompressionConfig,
                                              maybe_compress_grads)
@@ -74,8 +75,9 @@ def loss_and_grads(cfg: ModelConfig, tcfg: TrainConfig, params, batch):
         loss, metrics = M.loss_fn(params, cfg, b,
                                   aux_weight=tcfg.moe_aux_weight)
         # a parameter off the loss (a CAM head's rows) gets zeros
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                    materialize_grads=True)
+        with replicated_plain(leaves):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                        materialize_grads=True)
         return loss.detach(), dict(zip(names, grads)), \
             {k: v.detach() for k, v in metrics.items()}
 

@@ -633,6 +633,39 @@ def test_served_cnn_on_card_equals_direct(dev):
                                       direct[30:])
 
 
+def test_spmd_two_streams_many_bursts_equal_direct(dev):
+    """fanout="spmd" over [card, card]: each bucket split in two, each
+    half on its own stream, gathered on the first.  Hundreds of bursts
+    keep batches in flight back to back, so a slice's votes freed before
+    the gather that reads them would be overwritten by the next batch."""
+    _, _, cnn = _cnn("mnist-28", None, seed=7, min_bucket=8)
+    pipes = {"mlp": tpipe.compile_pipeline(
+        _folded(NETS[1][:-1], 1, NETS[1][-1]),
+        ensemble.EnsembleConfig(bias_cells=NETS[1][-1]), min_bucket=8),
+        "cnn": cnn}
+    server = PicBnnServer(BatchingPolicy(max_batch=64, max_wait_us=200),
+                          devices=[dev, dev], fanout="spmd")
+    for name, pipe in pipes.items():
+        server.register(name, pipe)
+    server.warmup()
+    rng = np.random.default_rng(2)
+    xs = {"mlp": rng.choice([-1.0, 1.0], (4000, pipes["mlp"].n_in)),
+          "cnn": rng.random((4000, pipes["cnn"].n_in))}
+    xs = {n: x.astype(np.float32) for n, x in xs.items()}
+    direct = {n: pipes[n].run(x, InferenceSpec()).cpu().numpy()
+              for n, x in xs.items()}
+    cuts = np.cumsum(rng.integers(1, 40, 400))
+    cuts = cuts[cuts < 4000]
+    with server:
+        bursts = [(n, lo, hi, server.submit_many(n, xs[n][lo:hi]))
+                  for lo, hi in zip(np.r_[0, cuts[:-1]], cuts)
+                  for n in pipes]
+        for n, lo, hi, h in bursts:
+            np.testing.assert_array_equal(h.votes_all(timeout=120),
+                                          direct[n][lo:hi])
+    assert server.stats().n_requests == 2 * int(cuts[-1])
+
+
 # ---------------------------------------------------------------------------
 # silicon mode on the card: kernels 3 and 4 in their sampled form, fed by
 # the port's sampler

@@ -191,7 +191,9 @@ def test_ft_demo_scenario_on_the_lm(tmp_path):
     sup, faulted, alerts = _lm_run(tmp_path / "flaky", fail_at=[3, 8],
                                    slow_at=range(9, 12), n_steps=12)
     assert sup.restarts == 2
-    assert alerts and alerts[0]["dt"] > STRAGGLER_S
+    # the straggler episode raised an alert; on a CPU shared with other
+    # test workers, contention may raise real ones before it
+    assert any(a["dt"] > STRAGGLER_S for a in alerts), alerts
     _assert_states_equal(faulted, clean)
 
 
@@ -271,5 +273,17 @@ def test_launcher_trains_on_cpu_with_and_without_checkpoints(tmp_path,
 
 
 def test_launcher_refuses_model_parallel():
-    with pytest.raises(NotImplementedError, match="sharding"):
-        launch_train.main(["--model-parallel", "2", "--device", "cpu"])
+    """The train launcher refuses a --model-parallel below 1; above the
+    world size it is capped (one CPU rank: a (1, 1) mesh training the
+    unsharded losses), and the group it started is gone."""
+    import torch.distributed as dist
+
+    args = ["--device", "cpu", "--arch", "llama3.2-1b+smoke", "--steps",
+            "2", "--batch", "2", "--seq", "16"]
+    with pytest.raises(ValueError, match="model-parallel"):
+        launch_train.main(args + ["--model-parallel", "0"])
+    capped = launch_train.run(args + ["--model-parallel", "2"])
+    assert not dist.is_initialized()
+    assert capped["state"]["params"].embed.device_mesh.mesh.shape == (1, 1)
+    np.testing.assert_allclose(capped["losses"], launch_train.main(args),
+                               rtol=1e-6)

@@ -121,8 +121,20 @@ def test_lm_port_imports_no_jax_and_defaults_to_cuda():
 
 
 def test_launcher_refuses_model_parallel():
-    """--model-parallel > 1 needs the sharding layer the port lacks."""
+    """The serving launcher refuses a --model-parallel below 1 before it
+    starts a process group; above the world size it is capped at it, as
+    the reference's make_host_mesh caps it (one CPU rank: a (1, 1) mesh
+    serving the unsharded tokens), and the group it started is gone."""
+    import torch.distributed as dist
+
     from repro_torch.launch import serve
 
-    with pytest.raises(NotImplementedError, match="sharding"):
-        serve.main(["--model-parallel", "2", "--device", "cpu"])
+    args = ["--device", "cpu", "--requests", "2", "--max-new", "3"]
+    with pytest.raises(ValueError, match="model-parallel"):
+        serve.main(args + ["--model-parallel", "0"])
+    assert not dist.is_initialized()
+    capped = serve.run(args + ["--model-parallel", "2"])
+    assert not dist.is_initialized()
+    assert tuple(capped["mesh"].mesh.shape) == (1, 1)
+    assert [r.tokens for r in capped["results"]] == \
+        [r.tokens for r in serve.main(args)]

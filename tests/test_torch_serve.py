@@ -1,8 +1,10 @@
 """The port's serving engine (`repro_torch.serve`): served results equal a
 direct `run` (noiseless, and silicon with per-request keys under any
-coalescing), batches never mix models, the micro-batcher makes the same
-decisions as the reference's, the Table-II stats equal the reference's,
-and what waits for later slices raises."""
+coalescing), batches never mix models, the SPMD fan-out over four CPU
+devices equals round-robin and a direct `run` (device -1 on every
+result), the micro-batcher makes the same decisions as the reference's,
+the Table-II stats equal the reference's, and what waits for later
+slices raises."""
 
 import numpy as np
 import pytest
@@ -134,8 +136,14 @@ def test_submit_validation_and_unported_options():
         server.register("m4", "some/dir")
     with pytest.raises(TypeError, match="Deployment"):
         server.register("m4", object())
-    with pytest.raises(NotImplementedError, match="spmd"):
-        PicBnnServer(devices=["cpu"], fanout="spmd")
+    # the SPMD fan-out is ported: it builds, and a bucket that does not
+    # split over the devices is refused at start
+    odd = PicBnnServer(BatchingPolicy(max_batch=16), devices=["cpu"] * 3,
+                       fanout="spmd")
+    odd.register("m", pipe)
+    with pytest.raises(ValueError, match="do not divide"):
+        odd.start()
+    odd.close()
     with pytest.raises(ValueError, match="fanout"):
         PicBnnServer(devices=["cpu"], fanout="ring")
     server.close()
@@ -296,3 +304,54 @@ def test_silicon_submit_validation():
     with pytest.raises(ValueError, match="noiseless"):
         server.submit("nl", x, key=np.zeros(2, np.uint32))
     server.close()
+
+
+def _spmd_model(kind):
+    """(pipeline, input batch, per-request keys or None) for the SPMD
+    cases: a bank MLP, the tiny CNN, or a silicon MLP."""
+    rng = np.random.default_rng(8)
+    if kind == "cnn":
+        _, tf, _, tcfg = random_cnn(5)
+        pipe = tpipe.compile_pipeline(tf, tens.EnsembleConfig(),
+                                      device="cpu", min_bucket=8,
+                                      image_side=tcfg.side,
+                                      image_encoding=tcfg.encoding)
+        return pipe, rng.random((37, tcfg.n_in)).astype(np.float32), None
+    sizes, bias = BANK_NETS["1024x128"], BANK_BIAS["1024x128"]
+    _, tf = random_folded(sizes, 3, bias)
+    noise = SILICON if kind == "silicon" else None
+    pipe = tpipe.compile_pipeline(tf, tens.EnsembleConfig(bias_cells=bias),
+                                  device="cpu", min_bucket=8, noise=noise)
+    keys = _keys(37, 2) if noise is not None else None
+    return pipe, pm1(rng, (37, sizes[0])), keys
+
+
+@pytest.mark.parametrize("kind", ["mlp", "cnn", "silicon"])
+def test_spmd_fanout_equals_round_robin_and_direct(kind):
+    pipe, x, keys = _spmd_model(kind)
+    spec = (InferenceSpec(noise="per_request") if keys is not None
+            else InferenceSpec())
+    direct = pipe.run(x, spec, keys=keys).numpy()
+    served = {}
+    for fanout in ("spmd", "round_robin"):
+        srv = PicBnnServer(BatchingPolicy(max_batch=16, max_wait_us=300),
+                           devices=["cpu"] * 4, fanout=fanout)
+        srv.register("m", pipe)
+        times = srv.warmup()["m"]
+        assert set(times) == {(spec, b) for b in (8, 16)}
+        with srv:
+            hs = [srv.submit("m", x[i], key=None if keys is None
+                             else keys[i]) for i in range(20)]
+            burst = srv.submit_many("m", x[20:], keys=None if keys is None
+                                    else keys[20:])
+            res = [h.result(timeout=60) for h in hs]
+            votes = np.concatenate([np.stack([r.votes for r in res]),
+                                    burst.votes_all(timeout=60)])
+        served[fanout] = votes
+        devices = {r.device for r in res}
+        assert devices == {-1} if fanout == "spmd" else -1 not in devices
+        np.testing.assert_array_equal(
+            [r.pred for r in res], direct[:20].argmax(-1))
+    np.testing.assert_array_equal(served["spmd"], direct)
+    np.testing.assert_array_equal(served["spmd"], served["round_robin"])
+
