@@ -21,7 +21,9 @@ exit 0):
    the shapes the CNNs' cumulative staircase gives it (the stage entry's
    query against the FC rows, then the head query).  Kernel time, plain
    time, and for kernel 1 the time of `torch._int_mm` on the unpacked ±1
-   int8 operands (the same function, n - 2*HD; the port never calls it).
+   int8 operands (the same function, n - 2*HD; the port never calls it),
+   for kernel 2 at the MLP heads a float32 ±1 `torch.matmul` of the
+   unpacked operands and the threshold compare (held equal to it).
    Each time stands beside the previous version's and beside its bound:
    the least time over the popcount route and the int8 and 1-bit
    tensor-core routes, each the larger of its operations and its bytes
@@ -106,7 +108,12 @@ exit 0):
    llama3.2-1b at full width, 2 blocks, float32, and its BitLinear
    projections: card == CPU.  Prefill ms, decode ms a token, tokens/s,
    and each kernel's device ms at the LM shapes beside its bound and the
-   library's time, in a `{"lm": ...}` line.
+   library's time, in a `{"lm": ...}` line.  Then the custom ops'
+   dispatch (kernels 1 and 2 are `torch.library` custom ops): each op
+   against its ctypes launch called straight, a call at the decode
+   shapes, and decode ms a token of +binary-ffn, +cam-head and the plain
+   model with the launches called straight and through the ops,
+   alternating.
 8. LM training, with every launch counter set to 0 just before its
    path: the reference's 100M example (custom-100m, float32, 300 steps
    of 8 x 512 through `launch.train` with the Supervisor and a
@@ -142,10 +149,27 @@ exit 0):
    within phase 8's tolerances.  Decode ms a token and train ms a step,
    mesh against none (the DTensor layer's cost), in a `{"mesh": ...}`
    line.
-10. A `{"kernels": [...]}` line (launches on the kernel's path, on the
-   silicon, train, LM, LM-training and mesh paths, error, times,
-   sampled-form times, bound, the LM-shape rows), then, as the last
-   line, `{"ok": true, "device": ...}`.
+10. The dry-run tooling (`repro_torch.launch.dryrun`): (a) full-size
+   cells traced on fake production meshes, each `python -m
+   repro_torch.launch.dryrun` call a subprocess (llama3.2-1b train_4k,
+   prefill_32k and decode_32k on 16 x 16, mixtral-8x7b decode_32k on
+   2 x 16 x 16, llama3.2-1b+binary-ffn+cam-head decode_32k with kernels
+   1 and 2 in their fake forms), each "ok", with peak GiB a device, the
+   bottleneck, the roofline's three terms and the trace's seconds; (b)
+   two of phase 9's (1, 1)-mesh runs (the served model's decode step at
+   B = 4, the 2-block float32 train step) run on the card under the
+   dry-run's counter, the counts set to 0 just before, against the same
+   cells traced on a fake (1, 1) group: FLOPs, binary operations, HBM
+   bytes and collectives equal, argument bytes equal, the peak estimate
+   within DRY_PEAK_RTOL of `torch.cuda.max_memory_allocated`, the
+   roofline bound as a fraction of a warm step (timed once the dry-run
+   subprocesses have ended); kernels 1 and 2 launched
+   in the decode step through their custom ops and equal to their plain
+   versions on the rows it packed.  A `{"dryrun": ...}` line.
+11. A `{"kernels": [...]}` line (launches on the kernel's path, on the
+   silicon, train, LM, LM-training, mesh and dry-run paths, error,
+   times, sampled-form times, bound, the LM-shape rows), then, as the
+   last line, `{"ok": true, "device": ...}`.
 
 Without CUDA, or without the rest of the repository beside it, the script
 exits non-zero before printing any result.  It imports nothing of JAX.
@@ -153,6 +177,7 @@ exits non-zero before printing any result.  It imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -1322,6 +1347,55 @@ def bitlinear_cases(model, prompts) -> list:
     return cases
 
 
+def direct_hd(x, w):
+    """Kernel 1 as its wrapper launched it before it became the custom op
+    `repro_torch::binary_gemm_hd`: the same checks, then the ctypes
+    launch called straight (the plain version for CPU tensors)."""
+    from repro_torch.kernels import binary_gemm as bg
+
+    bg._check_words("x_packed", x)
+    bg._check_words("w_packed", w)
+    if x.shape[1] != w.shape[1] or x.device != w.device:
+        raise ValueError("operands do not pair")
+    return bg.launch(x, w) if x.is_cuda else bg.binary_gemm_hd_plain(x, w)
+
+
+def direct_vote(q, rows, thr, *, thr_samples=None):
+    """Kernel 2 as `direct_hd` is kernel 1 (`repro_torch::cam_vote`)."""
+    from repro_torch.kernels import cam_search as cs
+
+    cs._check_words("q_packed", q)
+    cs._check_words("rows_packed", rows)
+    if q.shape[1] != rows.shape[1] or q.device != rows.device:
+        raise ValueError("operands do not pair")
+    thr = cs.normalize_thresholds(thr).to(q.device).contiguous()
+    if thr_samples is not None:
+        thr_samples = cs.check_samples(thr_samples, q.shape[0],
+                                       rows.shape[0], thr.shape[0])
+    return (cs.launch(q, rows, thr, thr_samples) if q.is_cuda
+            else cs.cam_vote_plain(q, rows, thr, thr_samples))
+
+
+@contextlib.contextmanager
+def direct_launches():
+    """`kernels.ops`' kernel 1 and 2 wrappers replaced by `direct_hd` and
+    `direct_vote`: the same launches without the op dispatch, to time
+    what the dispatch costs a step."""
+    from repro_torch.kernels import ops
+
+    saved = ops.binary_gemm_hd, ops.cam_vote
+    ops.binary_gemm_hd, ops.cam_vote = direct_hd, direct_vote
+    try:
+        yield
+    finally:
+        ops.binary_gemm_hd, ops.cam_vote = saved
+
+
+# the decode runs timed with the kernels' wrappers launching straight and
+# through the custom ops, alternating
+AB_KEYS = ("llama3.2-1b+binary-ffn", "llama3.2-1b+cam-head", "llama3.2-1b")
+
+
 def lm_phase(dev, smi: str, card, counted, quick: bool) -> dict:
     """Phase 7: the LM serving path (`repro_torch.models`, `serve.engine`).
 
@@ -1401,6 +1475,52 @@ def lm_phase(dev, smi: str, card, counted, quick: bool) -> dict:
               f"{p['decode_ms_per_token']:.3f} ms/token, "
               f"{p['tokens_per_s']:.1f} tokens/s ({p['requests']} requests, "
               f"{p['new_tokens']} new tokens; {smi})")
+    # the custom ops' dispatch in this one call: each op against its
+    # launch called straight (the wrapper before the op) at the decode
+    # step's shapes, per call (host-bound there); then decode ms a token
+    # of +binary-ffn (48 kernel-1 calls a step), +cam-head (one kernel-2
+    # call a step) and the plain model (no kernel: the run-to-run
+    # spread), the two ways alternating
+    from repro_torch.kernels import binary_gemm as bg
+    from repro_torch.kernels import cam_search as cs
+
+    g = torch.Generator(dev).manual_seed(SEED + 23)
+
+    def words(*shape):
+        return torch.randint(-2 ** 31, 2 ** 31 - 1, shape, generator=g,
+                             dtype=torch.int32, device=dev)
+
+    # kernel 1 at the BitLinear decode shape; kernel 2 at a few rows, so
+    # the call, not the device, sets its time
+    q, w = words(LM_BATCH, 64), words(8192, 64)
+    qc, rows = words(LM_BATCH, 64), words(256, 64)
+    thr = torch.arange(1008, 1041, dtype=torch.int32, device=dev)
+    dispatch = {"call_us": {
+        "binary_gemm_hd": {
+            "custom_op": time_ms(lambda: bg.binary_gemm_hd(q, w), 200) * 1e3,
+            "direct": time_ms(lambda: direct_hd(q, w), 200) * 1e3},
+        "cam_vote": {
+            "custom_op": time_ms(lambda: cs.cam_vote(qc, rows, thr),
+                                 200) * 1e3,
+            "direct": time_ms(lambda: direct_vote(qc, rows, thr),
+                              200) * 1e3}}}
+    for key in AB_KEYS:
+        ms = {"direct": [], "custom_op": []}
+        for mode in ("direct", "custom_op") * 3:
+            with (direct_launches() if mode == "direct"
+                  else contextlib.nullcontext()):
+                _, p = lm_engine_run(served[key], params[key], SEED + 22,
+                                     dev, on_card)
+            ms[mode].append(p["decode_ms_per_token"])
+        dispatch[key] = ms
+    for name, v in dispatch["call_us"].items():
+        print(f"  {name} a call at the decode shapes: through the custom op "
+              f"{v['custom_op']:.2f} us, launched straight {v['direct']:.2f}"
+              f" us ({smi})")
+    for key in AB_KEYS:
+        print(f"  {key:26s} decode ms/token, launches straight "
+              f"{dispatch[key]['direct']}, through the custom ops "
+              f"{dispatch[key]['custom_op']} ({smi})")
 
     # ---------------------------------- kernels at the LM path's shapes
     bl = params["llama3.2-1b+binary-ffn"]
@@ -1556,6 +1676,7 @@ def lm_phase(dev, smi: str, card, counted, quick: bool) -> dict:
     phase_s = time.perf_counter() - t_phase
     print(f"LM phase: {phase_s:.1f} s")
     return dict(launches=launches, perf=perf, kernels=lm_rows, checks=errs,
+                custom_op_dispatch=dispatch,
                 f32_card_vs_cpu_max_abs=f32_err, phase_s=phase_s, card=smi,
                 workload=dict(requests=LM_REQUESTS, prompt=LM_PROMPT,
                               max_new=LM_NEW, batch=LM_BATCH))
@@ -2328,6 +2449,318 @@ def mesh_phase(dev, smi: str, card, counted, served_models: dict,
                 phase_s=phase_s, card=smi)
 
 
+# ------------------------------------------------------ the dry-run (10)
+# (a) full-size cells on the fake production meshes: each
+# `python -m repro_torch.launch.dryrun` call a subprocess of its own (a
+# fake default group cannot share a process with a real one), all three
+# started together
+DRY_RUNS = (["--arch", "llama3.2-1b", "--shape",
+             "train_4k,prefill_32k,decode_32k"],
+            ["--arch", "mixtral-8x7b", "--shape", "decode_32k",
+             "--multi-pod"],
+            ["--arch", "llama3.2-1b+binary-ffn+cam-head", "--shape",
+             "decode_32k"])
+DRY_CELLS = ("llama3.2-1b__train_4k__pod", "llama3.2-1b__prefill_32k__pod",
+             "llama3.2-1b__decode_32k__pod", "mixtral-8x7b__decode_32k__multipod",
+             "llama3.2-1b+binary-ffn+cam-head__decode_32k__pod")
+# (b) two of phase 9's (1, 1)-mesh runs, counted on the card and traced on
+# a fake (1, 1) group: phase 9's served model decoding one step at B = 4
+# over an 80-slot cache (prompt 16 + the 64 slots prefill adds), and its
+# train step (llama3.2-1b, 2 blocks, float32, 2 x 64, lr 3e-4 from the
+# first step).  Both from fresh weights, so each packs its weight rows
+# inside the step, as the dry-run's fakes do.
+DRY_DECODE = dict(label="decode", arch="llama3.2-1b+binary-ffn+cam-head",
+                  cut={}, shape=("decode_b4", "decode", LM_PROMPT + 64,
+                                 LM_BATCH))
+DRY_TRAIN = dict(label="train", arch="llama3.2-1b",
+                 cut={"n_layers": 2, "dtype": "float32"},
+                 shape=("train_2x64", "train", 64, 2))
+# peak_estimate_gib against torch.cuda.max_memory_allocated (above what
+# was allocated before the step's arguments): the estimate counts each
+# storage's bytes, the allocator rounds each block up to 512 bytes and
+# holds cuBLAS's workspace beside the step; both are a few MiB against
+# the GiBs of these steps
+DRY_PEAK_RTOL = 0.05
+_FAKE_COUNTS = """
+import dataclasses, json, sys
+sys.path.insert(0, "src")
+from repro_torch import configs
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch import dryrun
+from repro_torch.train import TrainConfig
+from repro_torch.train.optimizer import OptimizerConfig
+
+out = {}
+with dryrun.fake_group(1):
+    mesh = dryrun.fake_mesh((1, 1), ("data", "model"))
+    for c in json.loads(sys.argv[1]):
+        cfg = dataclasses.replace(configs.get_config(c["arch"]), **c["cut"])
+        shape = ShapeConfig(*c["shape"])
+        tcfg = (TrainConfig(opt=OptimizerConfig(warmup_steps=0))
+                if shape.kind == "train" else None)
+        rec = dryrun.measure(cfg, shape, mesh, tcfg=tcfg)
+        rec.pop("ops")
+        out[c["label"]] = rec
+print("DRY-COUNTS " + json.dumps(out, default=str))
+"""
+
+
+def real_counts(cell: dict, dev, mesh, counted) -> dict:
+    """Cell (b) run for real on `dev` on a (1, 1) mesh, counted by the
+    dry-run's counter: the totals, the step's arguments (bytes of their
+    storages, as the dry-run counts them, and as allocated), the peak
+    allocated above what was there before them, the kernels' launches in
+    the step, and under "step" the step itself (for `warm_step_ms`)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.ft import reshard_state, state_shardings
+    from repro_torch.launch import dryrun
+    from repro_torch.models import model as M
+    from repro_torch.serve.steps import decode_step
+    from repro_torch.sharding import SERVE_RULES, TRAIN_RULES, use_rules
+    from repro_torch.train import TrainConfig, init_train_state, train_step
+    from repro_torch.train.optimizer import OptimizerConfig
+
+    on_card = dev.type == "cuda"
+    cfg = dataclasses.replace(configs.get_config(cell["arch"]), **cell["cut"])
+    shape = ShapeConfig(*cell["shape"])
+    b, s = shape.global_batch, shape.seq_len
+    gen = torch.Generator(dev).manual_seed(SEED + 51)
+    sync(dev)
+    base = torch.cuda.memory_allocated(dev) if on_card else 0
+    if shape.kind == "decode":
+        rules = SERVE_RULES.resolve(mesh)
+        params = M.init_params(cfg, gen, dev)
+        M.shard_params(params, mesh, rules)
+        with use_rules(rules, mesh):
+            cache = M.init_cache(cfg, b, s, dev)
+        tokens = torch.randint(1, cfg.vocab_size, (b, 1), generator=gen,
+                               dtype=torch.int32, device=dev)
+        pos = torch.tensor(s - 1, dtype=torch.int32, device=dev)
+        args = (params, cache, tokens, pos)
+
+        def step():
+            return decode_step(cfg, params, cache, tokens, s - 1)
+    else:
+        rules = TRAIN_RULES.resolve(mesh)
+        tcfg = TrainConfig(opt=OptimizerConfig(warmup_steps=0))
+        state = init_train_state(cfg, tcfg, gen, dev)
+        state = reshard_state(state, state_shardings(cfg, mesh, rules,
+                                                     state))
+        batch = {k: torch.randint(1, cfg.vocab_size, (b, s), generator=gen,
+                                  dtype=torch.int32, device=dev)
+                 for k in ("tokens", "labels")}
+        args = (state, batch)
+
+        def step():
+            return train_step(cfg, tcfg, state, batch)
+    sync(dev)
+    allocated = (torch.cuda.memory_allocated(dev) - base) if on_card else None
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    for fn in counted:
+        fn.launches = 0
+    with use_rules(rules, mesh), dryrun.instruments() as (counter, _, _):
+        step()
+    sync(dev)
+    launches = {fn.__name__: fn.launches for fn in counted}
+    peak = (torch.cuda.max_memory_allocated(dev) - base) if on_card else None
+    t = counter.totals
+
+    def ruled_step():
+        with use_rules(rules, mesh):
+            step()
+
+    out = dict(flops=t.flops, binary_ops=t.binary_ops, hbm_bytes=t.hbm_bytes,
+               collective_count=t.collective_count,
+               argument_bytes=sum(dryrun.local_bytes(args).values()),
+               argument_allocated=allocated, peak_allocated=peak,
+               launches=launches, step=ruled_step)
+    if shape.kind == "decode":
+        out["params"] = params
+    return out
+
+
+def warm_step_ms(step, dev) -> float:
+    """Mean wall ms of three more runs of a `real_counts` step."""
+    warm = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        step()
+        sync(dev)
+        warm.append(time.perf_counter() - t0)
+    return float(np.mean(warm)) * 1e3
+
+
+def dryrun_phase(dev, smi: str, counted, quick: bool) -> dict:
+    """Phase 10: the dry-run tooling (`repro_torch.launch.dryrun`).
+
+    (a) Full-size cells on the fake production meshes, each dry-run call
+    a subprocess: llama3.2-1b train_4k, prefill_32k and decode_32k on the
+    16 x 16 pod mesh, mixtral-8x7b decode_32k on the 2 x 16 x 16
+    multi-pod mesh, and llama3.2-1b+binary-ffn+cam-head decode_32k, which
+    puts kernels 1 and 2 through their fake forms; each must be "ok".
+    Printed per cell: peak GiB a device, the bottleneck, the three terms
+    and the trace's seconds.
+    (b) Two of phase 9's runs on a (1, 1) mesh, run on the card under the
+    dry-run's cost counter (one NCCL rank), against the same cells traced
+    on a fake (1, 1) group in a subprocess: FLOPs, binary operations, HBM
+    bytes and collective count equal; argument bytes equal the state's
+    bytes; peak_estimate_gib within DRY_PEAK_RTOL of
+    `torch.cuda.max_memory_allocated`; the roofline's step_time_lb_s as a
+    fraction of a warm step's time.  The counts set to 0 just before the
+    decode step: kernels 1 and 2 must launch in it, through their custom
+    ops, and equal their plain versions on the rows it packed.  `quick`
+    (a CPU rehearsal) takes the `+smoke` configs for (b) and a gloo rank.
+    """
+    import torch.distributed as dist
+
+    from repro_torch.kernels import binary_gemm, cam_search
+    from repro_torch.launch import mesh as lmesh
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    out_dir = root / "build" / "dryrun_smoke"
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    smoke = "+smoke" if quick else ""
+    cells_b = [dict(c, arch=c["arch"] + smoke) for c in (DRY_DECODE,
+                                                          DRY_TRAIN)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *a, "--out",
+         str(out_dir)], cwd=root, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for a in DRY_RUNS]
+    fake = subprocess.Popen(
+        [sys.executable, "-c", _FAKE_COUNTS, json.dumps(cells_b)], cwd=root,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        # ------------------------- (b) the real side, while those run
+        lmesh.ensure_process_group(dev.type)
+        try:
+            mesh = lmesh.make_host_mesh(1, dev.type)
+            real = {c["label"]: real_counts(c, dev, mesh, counted)
+                    for c in cells_b}
+            # kernels 1 and 2 on the rows the decode step packed
+            params = real["decode"].pop("params")
+            ffn, head = params.blocks[0].sub0.ffn, params.cam_head
+
+            def packed(owner, prefix):
+                return next(v[1] for k, v in owner.__dict__["_packed"].items()
+                            if k.startswith(prefix + "@"))
+
+            g = torch.Generator(dev).manual_seed(SEED + 52)
+            rows = packed(ffn, "w_gate")[0]
+            q = torch.randint(-2 ** 31, 2 ** 31 - 1, (LM_BATCH, rows.shape[1]),
+                              generator=g, dtype=torch.int32, device=dev)
+            require(torch.equal(binary_gemm.binary_gemm_hd(q, rows),
+                                binary_gemm.binary_gemm_hd_plain(q, rows)),
+                    "dry-run decode: binary_gemm_hd != plain on its rows")
+            crow = packed(head, "rows")
+            qc = torch.randint(-2 ** 31, 2 ** 31 - 1,
+                               (LM_BATCH, crow.shape[1]), generator=g,
+                               dtype=torch.int32, device=dev)
+            thr = head.thresholds.to_local()
+            require(torch.equal(cam_search.cam_vote(qc, crow, thr),
+                                cam_search.cam_vote_plain(qc, crow, thr)),
+                    "dry-run decode: cam_vote != plain on its rows")
+            del params, ffn, head
+            outs = [p.communicate(timeout=600) for p in procs]
+            fake_out = fake.communicate(timeout=600)
+            # the warm steps once the dry-runs have ended, so that no
+            # other process loads the host while they are timed
+            for r in real.values():
+                r["warm_step_ms"] = warm_step_ms(r.pop("step"), dev)
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    finally:
+        for p in (*procs, fake):
+            if p.poll() is None:
+                p.kill()
+    # ------------------------------------------------ (a) the cells
+    for a, p, (so, se) in zip(DRY_RUNS, procs, outs):
+        require(p.returncode == 0, f"dryrun {' '.join(a)}: exit "
+                f"{p.returncode}: {(so + se)[-3000:]}")
+    cells = {}
+    for cid in DRY_CELLS:
+        rec = json.loads((out_dir / f"{cid}.json").read_text())
+        require(rec.get("status") == "ok", f"dryrun {cid}: {rec.get('error')}")
+        rl, mem = rec["roofline"], rec["memory_analysis"]
+        cells[cid] = dict(
+            peak_gib=mem["peak_estimate_gib"], bottleneck=rl["bottleneck"],
+            compute_s=rl["compute_s"], memory_s=rl["memory_s"],
+            collective_s=rl["collective_s"], binary_s=rl["binary_s"],
+            trace_s=rec["compile_s"], fake_device=rec["fake_device"],
+            device_flops=rec["hlo_walker"]["device_flops"],
+            device_binary_ops=rec["hlo_walker"]["device_binary_ops"],
+            collectives=rec["hlo_walker"]["collective_count"])
+        print(f"  dryrun {cid}: ok, peak {mem['peak_estimate_gib']} GiB/dev, "
+              f"bottleneck {rl['bottleneck']}, compute {rl['compute_s']:.3e} "
+              f"s, memory {rl['memory_s']:.3e} s, collective "
+              f"{rl['collective_s']:.3e} s, trace {rec['compile_s']} s "
+              f"({rec['fake_device']} fakes)")
+    require(cells["llama3.2-1b+binary-ffn+cam-head__decode_32k__pod"]
+            ["device_binary_ops"] > 0,
+            "dryrun: kernels 1 and 2 counted no binary operations")
+    # ------------------------------- (b) the card against the fakes
+    require(fake.returncode == 0, f"dry-run (1, 1) cells: exit "
+            f"{fake.returncode}: {fake_out[1][-3000:]}")
+    line = next(ln for ln in fake_out[0].splitlines()
+                if ln.startswith("DRY-COUNTS "))
+    dry = json.loads(line.split(" ", 1)[1])
+    counts = {}
+    for label, r in real.items():
+        d = dry[label]
+        w, mem = d["hlo_walker"], d["memory_analysis"]
+        for key, fake_v in (("flops", w["device_flops"]),
+                            ("binary_ops", w["device_binary_ops"]),
+                            ("hbm_bytes", w["device_hbm_bytes"]),
+                            ("collective_count", w["collective_count"])):
+            require(r[key] == fake_v, f"dry-run {label}: {key} on the card "
+                    f"{r[key]} != fake {fake_v}")
+        require(r["argument_bytes"] == mem["argument_bytes_per_device"],
+                f"dry-run {label}: argument bytes {r['argument_bytes']} != "
+                f"{mem['argument_bytes_per_device']}")
+        est = (mem["argument_bytes_per_device"]
+               + mem["output_bytes_per_device"]
+               + mem["temp_bytes_per_device"]
+               - mem["alias_bytes_per_device"])
+        ratio = est / r["peak_allocated"] if r["peak_allocated"] else None
+        require(ratio is None or abs(ratio - 1) <= DRY_PEAK_RTOL,
+                f"dry-run {label}: peak estimate / max_memory_allocated "
+                f"{ratio}")
+        lb = d["roofline"]["step_time_lb_s"]
+        counts[label] = dict(
+            flops=r["flops"], binary_ops=r["binary_ops"],
+            hbm_bytes=r["hbm_bytes"], collective_count=r["collective_count"],
+            argument_bytes=r["argument_bytes"],
+            argument_allocated=r["argument_allocated"],
+            peak_estimate_bytes=est, peak_allocated=r["peak_allocated"],
+            peak_ratio=ratio, launches=r["launches"],
+            warm_step_ms=r["warm_step_ms"], step_time_lb_ms=lb * 1e3,
+            lb_fraction=lb * 1e3 / r["warm_step_ms"],
+            bottleneck=d["roofline"]["bottleneck"], trace_s=d["compile_s"])
+        print(f"  dry-run {label} (1, 1) card == fake: flops {r['flops']:.6g},"
+              f" binary {r['binary_ops']:.6g}, HBM {r['hbm_bytes']:.6g} B, "
+              f"collectives {r['collective_count']}; arguments "
+              f"{r['argument_bytes']} B (allocated {r['argument_allocated']});"
+              f" peak estimate / max allocated {ratio}; roofline bound "
+              f"{lb * 1e3:.4f} ms = {lb * 1e3 / r['warm_step_ms']:.4f} of a "
+              f"warm step's {r['warm_step_ms']:.2f} ms ({smi})")
+    launches = counts["decode"]["launches"]
+    for name in ("binary_gemm_hd", "cam_vote"):
+        require(launches[name] > 0 or dev.type != "cuda",
+                f"{name} was not launched in the dry-run's decode step")
+    phase_s = time.perf_counter() - t_phase
+    print(f"dry-run phase: {phase_s:.1f} s")
+    return dict(cells=cells, counts=counts, launches=launches,
+                peak_rtol=DRY_PEAK_RTOL, phase_s=phase_s, card=smi)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check needs the card",
@@ -2376,7 +2809,7 @@ def main() -> int:
 
 def run(dev: torch.device, b_main: int, batches, card: Card,
         smi: str) -> list:
-    """Phases 2-9 on `dev`; returns the kernels line's entries.
+    """Phases 2-10 on `dev`; returns the kernels line's entries.
 
     Called with the card by `main`; a CPU rehearsal may call it with
     device "cpu" and small batches (every kernel then takes its plain
@@ -2506,6 +2939,12 @@ def run(dev: torch.device, b_main: int, batches, card: Card,
         k2_ms = device_ms(lambda: cam_search.cam_vote(q, head, thr))
         k2_plain_ms = time_ms(
             lambda: cam_search.cam_vote_plain(q, head, thr), 3)
+        # the library yardstick: the reference's float32 ±1 product of the
+        # unpacked operands and the compare (`vote_case`)
+        k2_lib = vote_case(mid, q, head, thr)[3]
+        require(torch.equal(k2_lib().to(torch.int32),
+                            cam_search.cam_vote(q, head, thr)),
+                f"{mid}: float32 ±1 torch.matmul + compare != cam_vote")
         pairs = b * n_cls * kw_h
         vote = 2 * b * n_cls * p
         report["cam_vote"]["per_model"][mid] = dict(
@@ -2514,7 +2953,9 @@ def run(dev: torch.device, b_main: int, batches, card: Card,
                 card, pairs, 2 * pairs + vote,
                 4 * (b * kw_h + n_cls * kw_h + p + b * n_cls), 32 * pairs,
                 vote),
-            library_ms=None, max_abs_err=max(errs))
+            library_ms=device_ms(k2_lib),
+            library="float32 ±1 torch.matmul + compare",
+            max_abs_err=max(errs))
 
         # kernel 3: the whole net, all three threshold forms
         args = (xp, pipe.layer_ws, pipe.layer_cs, pipe.layer_n_bits, head)
@@ -2701,6 +3142,10 @@ def run(dev: torch.device, b_main: int, batches, card: Card,
                       quick=not on_card)
     print(json.dumps({"mesh": mesh}))
 
+    # --------------------------------------------- the dry-run (phase 10)
+    dry = dryrun_phase(dev, smi, counted, quick=not on_card)
+    print(json.dumps({"dryrun": dry}))
+
     # ------------------------------------------------------------ summary
     line = []
     for name, r in report.items():
@@ -2728,6 +3173,9 @@ def run(dev: torch.device, b_main: int, batches, card: Card,
             # serving launcher (kernels 1/2), each counted from 0
             mesh_launches=sum(v[name] for v in mesh["launches"].values()),
             mesh=mesh["kernels"].get(name),
+            # phase 10(b): the (1, 1) decode step under the dry-run's
+            # counter, through the custom ops
+            dryrun_launches=dry["launches"][name],
             sampled_ms=r.get("sampled", {}).get(
                 "hg_cnn" if "conv" in name else "hg", {}).get("ms"),
             sampled=r.get("sampled"),

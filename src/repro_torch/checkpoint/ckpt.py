@@ -26,6 +26,16 @@ called and writes it on a thread, so training goes on while the files
 are written.  `restore` places the leaves on `device=` where the
 reference takes device shardings; `load_into` writes a restored tree
 into live tensors and modules in place.
+
+Under a process group of more than one rank (a sharded train state),
+every rank takes part in gathering each DTensor leaf whole, rank 0
+alone keeps the gathered leaves (another rank drops each at once) and
+writes the directory, and every rank meets the others at a
+barrier once the step is on disk: `save` before it returns, an
+`AsyncCheckpointer` in its next `wait()`.  Every rank reads a restore
+(the directory is on a file system they share) and `load_into` cuts
+each rank's shard back out of the whole leaf.  The format is the one
+above whatever the ranks.
 """
 
 from __future__ import annotations
@@ -41,6 +51,7 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from repro_torch.sharding.rules import MeshPlacement, is_dtensor
@@ -145,17 +156,57 @@ def load_into(live, values):
     return live
 
 
+def _ranks() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def is_writer() -> bool:
+    """Whether this rank writes checkpoints: rank 0 of the default group
+    (the only rank without one)."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _barrier() -> None:
+    """All ranks meet (a no-op with one rank)."""
+    if _ranks() > 1:
+        dist.barrier()
+
+
+def _arrays(tree, copy: bool = False) -> list:
+    """[(path, (array, dtype name))] of the leaves to write, on the
+    writing rank (of a `snapshot` when `copy`).  Another rank takes part
+    in gathering each DTensor leaf and drops it at once, holds nothing,
+    and gets []."""
+    if not is_writer():
+        for _, leaf in leaf_paths(tree):
+            if isinstance(leaf, torch.Tensor):
+                _whole(leaf)
+        return []
+    if copy:
+        tree = snapshot(tree)
+    return [(name, _npy(leaf)) for name, leaf in leaf_paths(tree)]
+
+
 def save(root, step: int, tree, *, keep_last: int = 3) -> Path:
-    """Synchronous atomic save of `tree` as step `step` under `root`.
-    Returns the final checkpoint directory."""
-    root = Path(root)
+    """Synchronous atomic save of `tree` as step `step` under `root`:
+    every rank gathers the leaves, rank 0 writes, all meet before it
+    returns.  Returns the final checkpoint directory."""
+    arrays = _arrays(tree)
+    final = Path(root) / f"step_{step:08d}"
+    if is_writer():
+        _write_step(Path(root), step, arrays, keep_last)
+    _barrier()
+    return final
+
+
+def _write_step(root: Path, step: int, arrays, keep_last: int) -> Path:
+    """Write [(path, (array, dtype name))] as step `step` (atomically)."""
     root.mkdir(parents=True, exist_ok=True)
     final = root / f"step_{step:08d}"
     tmp = root / f".step_{step:08d}.tmp-{uuid.uuid4().hex[:8]}"
     tmp.mkdir(parents=True)
     manifest = {"step": step, "time": time.time(), "leaves": []}
-    for name, leaf in leaf_paths(tree):
-        arr, dtype = _npy(leaf)
+    for name, (arr, dtype) in arrays:
         fname = name.replace("/", "__") + ".npy"
         np.save(tmp / fname, arr)
         manifest["leaves"].append(
@@ -178,27 +229,34 @@ def save(root, step: int, tree, *, keep_last: int = 3) -> Path:
 class AsyncCheckpointer:
     """Snapshot-on-call, write-on-thread checkpointing.
 
-    `save_async(step, tree)` copies every leaf to host memory before it
-    returns (so later in-place updates of the live tensors cannot reach
-    the files) and writes the step on a daemon thread; one save is in
-    flight at a time.  An error in the writer is raised by the next
-    `wait()` (which `save_async` calls first).
+    `save_async(step, tree)` copies every leaf to host memory on rank 0
+    before it returns (so later in-place updates of the live tensors
+    cannot reach the files; every rank takes part in gathering a DTensor
+    leaf, `_arrays`) and writes the step on a daemon thread of rank 0;
+    one save is in flight
+    at a time.  `wait()` joins it, meets the other ranks at a barrier,
+    and raises the writer's error, if it had one (`save_async` calls it
+    first).
     """
 
     def __init__(self, root, keep_last: int = 3):
         self.root = Path(root)
         self.keep_last = keep_last
         self._thread: Optional[threading.Thread] = None
+        self._pending = False
         self.last_error: Optional[BaseException] = None
 
     def save_async(self, step: int, tree) -> None:
         """Snapshot `tree` now; write it as step `step` in the background."""
         self.wait()
-        host_tree = snapshot(tree)
+        arrays = _arrays(tree, copy=True)
+        self._pending = True
+        if not is_writer():
+            return
 
         def work():
             try:
-                save(self.root, step, host_tree, keep_last=self.keep_last)
+                _write_step(self.root, step, arrays, self.keep_last)
             except BaseException as e:  # surfaced on the next wait()
                 self.last_error = e
 
@@ -206,10 +264,14 @@ class AsyncCheckpointer:
         self._thread.start()
 
     def wait(self) -> None:
-        """Join the in-flight save; raise its error, if it had one."""
+        """Join the in-flight save, meet the other ranks once it is on
+        disk, and raise its error, if it had one."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._pending:
+            self._pending = False
+            _barrier()
         if self.last_error is not None:
             err, self.last_error = self.last_error, None
             raise err

@@ -25,7 +25,6 @@ import torch
 WORD = 32
 
 _TWO32 = 1 << 32
-_SHIFTS = torch.arange(WORD, dtype=torch.int64)
 
 
 class _SignSTE(torch.autograd.Function):
@@ -76,7 +75,10 @@ def pack_bits(bits: torch.Tensor) -> torch.Tensor:
     if pad:
         bits = torch.nn.functional.pad(bits, (0, pad))
     b = bits.reshape(*lead, kw, WORD).to(torch.int64)
-    words = (b << _SHIFTS.to(b.device)).sum(-1)  # < 2^32: exact in int64
+    # the shifts made on b's device each call (a module-level tensor would
+    # meet the fake tensors of a dry-run as a real one)
+    shifts = torch.arange(WORD, dtype=torch.int64, device=b.device)
+    words = (b << shifts).sum(-1)  # < 2^32: exact in int64
     # wrap into int32 keeping the low 32 bits (bit 31 becomes the sign)
     return torch.where(words >= 1 << 31, words - _TWO32, words).to(torch.int32)
 
@@ -96,7 +98,7 @@ def unpack_bits(words: torch.Tensor, n_bits: int) -> torch.Tensor:
     bit 31 reads back correctly.
     """
     *lead, kw = words.shape
-    shifts = _SHIFTS.to(device=words.device, dtype=torch.int32)
+    shifts = torch.arange(WORD, dtype=torch.int32, device=words.device)
     bits = (words[..., None] >> shifts) & 1
     return bits.reshape(*lead, kw * WORD)[..., :n_bits].to(torch.uint8)
 

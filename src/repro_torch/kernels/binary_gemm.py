@@ -3,9 +3,12 @@
     out[m, n] = sum_k popcount(x[m, k] XOR w[n, k])        (Hamming distance)
     dot_pm1   = n_bits - 2 * out                           (XNOR-popcount dot)
 
-`binary_gemm_hd` launches the CUDA kernel of `csrc/binary_gemm.cu` for
-tensors on the card and runs `binary_gemm_hd_plain`, the same arithmetic
-in plain PyTorch, for tensors on the CPU.  It replaces the Pallas kernel
+`binary_gemm_hd` is the PyTorch custom op `repro_torch::binary_gemm_hd`:
+its CUDA kernel launches `csrc/binary_gemm.cu` for tensors on the card,
+its CPU kernel runs `binary_gemm_hd_plain`, the same arithmetic in plain
+PyTorch, and its fake form gives the [M, N] int32 result's shape, so the
+op traces under `FakeTensorMode`, on the meta device and on DTensor
+local shards (`launch/dryrun.py`).  It replaces the Pallas kernel
 `repro/kernels/binary_gemm.py::binary_gemm_hd`; the source note in the
 .cu file says what bounds it on the card and how it is tiled.
 """
@@ -50,10 +53,30 @@ def binary_gemm_hd(x_packed: torch.Tensor,
                          f"{tuple(w_packed.shape)}")
     if x_packed.device != w_packed.device:
         raise ValueError("x_packed and w_packed are on different devices")
-    if x_packed.device.type == "cpu":
-        return binary_gemm_hd_plain(x_packed, w_packed)
-    if x_packed.device.type != "cuda":
-        raise ValueError(f"unsupported device {x_packed.device}")
+    return _op(x_packed, w_packed)
+
+
+binary_gemm_hd.launches = 0
+
+
+@torch.library.custom_op("repro_torch::binary_gemm_hd", mutates_args=())
+def _op(x_packed: torch.Tensor, w_packed: torch.Tensor) -> torch.Tensor:
+    raise ValueError(f"unsupported device {x_packed.device}")
+
+
+@_op.register_fake
+def _(x_packed, w_packed):
+    return x_packed.new_empty((x_packed.shape[0], w_packed.shape[0]),
+                              dtype=torch.int32)
+
+
+_op.register_kernel("cpu")(binary_gemm_hd_plain)
+
+
+@_op.register_kernel("cuda")
+def launch(x_packed: torch.Tensor, w_packed: torch.Tensor) -> torch.Tensor:
+    """The kernel's launch on the card (the op's CUDA kernel; checked
+    operands)."""
     m, kw = x_packed.shape
     n = w_packed.shape[0]
     if -(-m // 32) > 65535:
@@ -70,6 +93,3 @@ def binary_gemm_hd(x_packed: torch.Tensor,
     _build.check(lib, err, "binary_gemm_hd")
     binary_gemm_hd.launches += 1
     return out
-
-
-binary_gemm_hd.launches = 0

@@ -9,9 +9,12 @@ schedule (compared as float32(HD) <= T), or a float32 [B, C, P] block of
 sampled thresholds (`thr_samples`, drawn by
 `core.physics.SearchPhysics.sample`).
 
-`cam_vote` launches the CUDA kernel of `csrc/cam_search.cu` for tensors
-on the card and runs `cam_vote_plain` for tensors on the CPU.  It
-replaces the Pallas kernel `repro/kernels/cam_search.py::cam_vote`.  The
+`cam_vote` is the PyTorch custom op `repro_torch::cam_vote`: its CUDA
+kernel launches `csrc/cam_search.cu` for tensors on the card, its CPU
+kernel runs `cam_vote_plain`, and its fake form gives the [B, C] int32
+result's shape (so it traces under `FakeTensorMode`, on the meta device
+and on DTensor local shards).  It replaces the Pallas kernel
+`repro/kernels/cam_search.py::cam_vote`.  The
 kernel is the block program of kernels 2 and 3 (`csrc/mlp_block.cuh`)
 with no hidden layers: distances on the 1-bit tensor cores, and for the
 shared schedules a per-block table of the vote at every distance, whose
@@ -20,6 +23,8 @@ block program's shared-memory layout.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -142,24 +147,51 @@ def cam_vote(q_packed: torch.Tensor, rows_packed: torch.Tensor,
         raise ValueError(f"packed widths differ: {tuple(q_packed.shape)} vs "
                          f"{tuple(rows_packed.shape)}")
     dev = q_packed.device
-    if dev.type == "cpu":
-        return cam_vote_plain(q_packed, rows_packed, thresholds, thr_samples)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
+    b, c = q_packed.shape[0], rows_packed.shape[0]
+    thr = normalize_thresholds(thresholds).to(dev).contiguous()
+    if thr_samples is not None:
+        thr_samples = check_samples(thr_samples, b, c, thr.shape[0])
+    for name, t in (("rows_packed", rows_packed), ("thr_samples", thr_samples)):
+        if t is not None and t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, queries on {dev}")
+    return _op(q_packed, rows_packed, thr, thr_samples)
+
+
+cam_vote.launches = 0
+
+
+@torch.library.custom_op("repro_torch::cam_vote", mutates_args=())
+def _op(q_packed: torch.Tensor, rows_packed: torch.Tensor,
+        thresholds: torch.Tensor,
+        thr_samples: Optional[torch.Tensor]) -> torch.Tensor:
+    raise ValueError(f"unsupported device {q_packed.device}")
+
+
+@_op.register_fake
+def _(q_packed, rows_packed, thresholds, thr_samples):
+    return q_packed.new_empty((q_packed.shape[0], rows_packed.shape[0]),
+                              dtype=torch.int32)
+
+
+_op.register_kernel("cpu")(cam_vote_plain)
+
+
+@_op.register_kernel("cuda")
+def launch(q_packed: torch.Tensor, rows_packed: torch.Tensor,
+           thresholds: torch.Tensor,
+           thr_samples: Optional[torch.Tensor]) -> torch.Tensor:
+    """The kernel's launch on the card (the op's CUDA kernel; operands
+    checked by `cam_vote`, thresholds normalised)."""
+    dev = q_packed.device
     b, kw = q_packed.shape
     c = rows_packed.shape[0]
-    thr = normalize_thresholds(thresholds).to(dev).contiguous()
+    thr = thresholds
     p = thr.shape[0]
     if thr_samples is not None:
-        thr_samples = check_samples(thr_samples, b, c, p)
         mode, samples_ptr = THR_SAMPLED, thr_samples.data_ptr()
     else:
         mode = THR_FLOAT if thr.is_floating_point() else THR_INT
         samples_ptr = None
-    for name, t in (("rows_packed", rows_packed), ("thresholds", thr),
-                    ("thr_samples", thr_samples)):
-        if t is not None and t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, queries on {dev}")
     vtab_n = vote_table_len(kw, thr_samples is not None)
     if block_smem_bytes(kw, [], QUERY_TILE, vtab_n, [])[0] > SMEM_LIMIT:
         raise ValueError(f"Kw = {kw} words: a tile of {QUERY_TILE} queries "
@@ -177,6 +209,3 @@ def cam_vote(q_packed: torch.Tensor, rows_packed: torch.Tensor,
     _build.check(lib, err, "cam_vote")
     cam_vote.launches += 1
     return out
-
-
-cam_vote.launches = 0

@@ -105,8 +105,8 @@ def make_production_mesh(*, multi_pod: bool = False,
 def validate_mesh(mesh) -> dict:
     """Shape/axis report used by the dry-run logs."""
     return {
-        "axes": dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)),
-        "n_devices": int(mesh.mesh.numel()),
+        "axes": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+        "n_devices": int(mesh.size()),
         "platform": "gpu" if mesh.device_type == "cuda" else mesh.device_type,
     }
 

@@ -7,7 +7,9 @@ Without --model-parallel one device holds the whole model.  With
 DeviceMesh over the process group's ranks (one card each; a single
 process starts a group of one): `ft.state_shardings` under TRAIN_RULES
 places the parameters, moments and masters as DTensors, and every step
-runs under `use_rules(rules, mesh)`.
+runs under `use_rules(rules, mesh)`.  With --ckpt-dir every rank takes
+part in each save and restore, and rank 0 alone writes
+(`checkpoint/ckpt.py`).
 
 Usage (on the CUDA card unless --device says otherwise):
   python -m repro_torch.launch.train --arch llama3.2-1b+smoke --steps 20
@@ -26,7 +28,6 @@ from pathlib import Path
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from repro_torch import configs
 from repro_torch.configs.base import ModelConfig
@@ -115,9 +116,6 @@ def run(argv=None, *, cfg: ModelConfig | None = None,
 def _run(args, cfg: ModelConfig, opt: OptimizerConfig) -> dict:
     mesh, rules, dev = host_mesh(args.model_parallel, args.device,
                                  TRAIN_RULES)
-    if mesh is not None and args.ckpt_dir and dist.get_world_size() > 1:
-        raise ValueError("--ckpt-dir with more than one rank: every rank "
-                         "would write the same checkpoint files")
     tcfg = TrainConfig(
         opt=opt,
         microbatches=args.microbatches,

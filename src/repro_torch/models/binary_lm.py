@@ -58,13 +58,15 @@ def sign_bits(x: torch.Tensor) -> torch.Tensor:
 def _once(owner: nn.Module, name: str, w: torch.Tensor, make):
     """`make(w)`, computed once per version of `w` and kept on `owner`.
 
-    Keyed by the tensor's storage, device and version counter (a
+    Keyed by the tensor's storage (the storage object, whose address a
+    fake tensor of a dry-run lacks), device and version counter (a
     DTensor's: its local shard's), so loading new weights (an in-place
     copy) or moving the model recomputes it.
     """
     cache = owner.__dict__.setdefault("_packed", {})
     local = w.to_local() if is_dtensor(w) else w
-    key = (local.data_ptr(), local.device, local._version)
+    key = (id(local.untyped_storage()), local.storage_offset(), local.device,
+           local._version)
     hit = cache.get(name)
     if hit is None or hit[0] != key:
         with torch.no_grad():

@@ -31,8 +31,8 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.sharding import shard
-from repro_torch.sharding.rules import (is_dtensor, logical_axis_size,
-                                        sharded_matmul)
+from repro_torch.sharding.rules import (as_dtensor, is_dtensor, keep, local,
+                                        logical_axis_size, sharded_matmul)
 
 F32 = torch.float32
 NEG = -1e30  # the reference's masked score
@@ -177,35 +177,33 @@ def _masked_softmax_attention(q, k, v, q_pos, k_pos, window):
     return torch.einsum("bgrqc,bgcd->bgrqd", p, v.to(F32)).to(q.dtype)
 
 
-def attention(p: Attention, cfg: ModelConfig, h, positions, inv_freq, *,
-              window: int, cache: Optional[dict] = None, cache_index=None):
-    """GQA attention sublayer (post-norm input h: [B, S, D]).
+def _local_attention_plan(q, k, v, cache):
+    """(mesh, q's placements, the batch rows' placements) when q, k, v
+    and the cache are DTensors split only along the batch or along whole
+    kv-head groups, each the same way (each rank then attends with its
+    own shards); else None (plain tensors, a split kv sequence)."""
+    if not is_dtensor(q):
+        return None
+    ts = [q, k, v] + ([] if cache is None else [cache["k"], cache["v"]])
+    if not all(is_dtensor(t) and t.device_mesh == q.device_mesh for t in ts):
+        return None
+    rows = keep(q.placements, lambda qp: qp.is_shard(0))
+    for i, qp in enumerate(q.placements):
+        if any(t.placements[i] != qp for t in ts) or not (
+                qp.is_replicate() or qp.is_shard(0) or qp.is_shard(2)):
+            return None
+        if cache is not None and cache["pos"].placements[i] != rows[i]:
+            return None
+    return q.device_mesh, q.placements, rows
 
-    Training / prefill: every in-context key; a given cache is filled
-    (the last cache_len positions, rolled so position p sits at slot
-    p % cache_len, when the window is shorter than S).  Decode (S == 1
-    with a cache): the new k/v/pos are written at slot
-    cache_index % cache_len, in place, then the query attends over the
-    cache in its stored [B, L, G, dh] layout.
 
-    Returns (out [B, S, D], the cache or None).
-    """
-    b, s, _ = h.shape
-    g, r = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
-    hd = cfg.head_dim
-
-    q = _proj_heads(h, p.wq)
-    k = _proj_heads(h, p.wk)
-    v = _proj_heads(h, p.wv).to(h.dtype)
-    if cfg.qk_norm:
-        q, k = _head_norm(q.to(F32)), _head_norm(k.to(F32))
-    q = apply_rope(q.to(h.dtype), positions, inv_freq)
-    k = apply_rope(k.to(h.dtype), positions, inv_freq)
-    q = shard(q, "batch", "seq", "heads", None)
-    k = shard(k, "batch", "seq", "kv_heads", None)
-    v = shard(v, "batch", "seq", "kv_heads", None)
-    qg = q.reshape(b, s, g, r, hd).permute(0, 2, 3, 1, 4)  # [B,G,R,S,dh]
-    pos = positions.to(torch.int32).expand(b, s)
+def _attend(q, k, v, pos, cache, cache_index, window, dtype):
+    """The attention core of `attention`: q [B, S, H, dh] over k, v
+    [B, S, G, dh] at positions pos [B, S], filling or reading the cache
+    -> out [B, S, H, dh] in `dtype`."""
+    b, s, hq, hd = q.shape
+    g = k.shape[2]
+    qg = q.reshape(b, s, g, hq // g, hd).permute(0, 2, 3, 1, 4)  # [B,G,R,S,dh]
 
     if cache is not None and s == 1:
         # ---- decode: write the new kv into the (rolling) cache ----
@@ -225,9 +223,9 @@ def attention(p: Attention, cfg: ModelConfig, h, positions, inv_freq, *,
         valid = (delta >= 0) & (delta < window) & (
             pos_c[:, None, None, None, :] >= 0)
         scores = torch.where(valid, scores, torch.full_like(scores, NEG))
-        probs = torch.softmax(scores, dim=-1).to(h.dtype)
+        probs = torch.softmax(scores, dim=-1).to(dtype)
         out = torch.einsum("bgrql,blgd->bgrqd", probs.to(F32),
-                           v_c.to(F32)).to(h.dtype)
+                           v_c.to(F32)).to(dtype)
     else:
         # ---- train / prefill over the in-context keys ----
         if cache is not None:
@@ -245,7 +243,56 @@ def attention(p: Attention, cfg: ModelConfig, h, positions, inv_freq, *,
             qg, k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3), pos, pos,
             window)
 
-    out = out.permute(0, 3, 1, 2, 4).reshape(b, s, g * r, hd)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, hq, hd)
+
+
+def attention(p: Attention, cfg: ModelConfig, h, positions, inv_freq, *,
+              window: int, cache: Optional[dict] = None, cache_index=None):
+    """GQA attention sublayer (post-norm input h: [B, S, D]).
+
+    Training / prefill: every in-context key; a given cache is filled
+    (the last cache_len positions, rolled so position p sits at slot
+    p % cache_len, when the window is shorter than S).  Decode (S == 1
+    with a cache): the new k/v/pos are written at slot
+    cache_index % cache_len, in place, then the query attends over the
+    cache in its stored [B, L, G, dh] layout.
+
+    Returns (out [B, S, D], the cache or None).
+    """
+    b, s, _ = h.shape
+    g = cfg.n_kv_heads
+
+    q = _proj_heads(h, p.wq)
+    k = _proj_heads(h, p.wk)
+    v = _proj_heads(h, p.wv).to(h.dtype)
+    if cfg.qk_norm:
+        q, k = _head_norm(q.to(F32)), _head_norm(k.to(F32))
+    q = apply_rope(q.to(h.dtype), positions, inv_freq)
+    k = apply_rope(k.to(h.dtype), positions, inv_freq)
+    q = shard(q, "batch", "seq", "heads", None)
+    if g % logical_axis_size("heads"):
+        # a heads split that the [G, R] view cannot carry (fewer kv heads
+        # than the axis splits): the query whole, as the kv heads are
+        q = shard(q, "batch", "seq", None, None)
+    k = shard(k, "batch", "seq", "kv_heads", None)
+    v = shard(v, "batch", "seq", "kv_heads", None)
+    pos = positions.to(torch.int32).expand(b, s)
+    plan = _local_attention_plan(q, k, v, cache)
+    if plan is None:
+        out = _attend(q, k, v, pos, cache, cache_index, window, h.dtype)
+    else:
+        # every split is of the batch or of whole kv-head groups: each
+        # rank attends with its own shards
+        from torch.distributed.tensor import DTensor
+
+        mesh, pl, rows = plan
+        out = _attend(q.to_local(), k.to_local(), v.to_local(),
+                      local(as_dtensor(pos, mesh), rows),
+                      None if cache is None else {n: t.to_local()
+                                                  for n, t in cache.items()},
+                      cache_index, window, h.dtype)
+        out = DTensor.from_local(out, mesh, pl, run_check=False)
+
     out = shard(out, "batch", "seq", "heads", None)
     y = _matmul(out.flatten(2), p.wo.flatten(0, 1)).to(h.dtype)
     return shard(y, "batch", "seq", "embed"), cache
@@ -350,6 +397,13 @@ def moe_param_axes(cfg: ModelConfig) -> dict:
     }
 
 
+def one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """`F.one_hot(idx, n)` (int64) as a compare against arange(n): the
+    same ops on real tensors and on a dry-run's fakes (`F.one_hot` takes
+    another path on fake ones, so their counts would differ)."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).long()
+
+
 def moe_capacity(n_tokens: int, cfg: ModelConfig) -> int:
     c = int(cfg.capacity_factor * n_tokens * cfg.moe_top_k / cfg.n_experts)
     return max(c, cfg.moe_top_k)
@@ -388,7 +442,7 @@ def moe(p: MoE, cfg: ModelConfig, h: torch.Tensor, *,
         y, probs, idx = _moe_groups(x, ws, cfg, cap)
         if aux is not None:
             me = probs.mean((0, 1))  # [E]
-            ce = F.one_hot(idx[..., 0], e).to(F32).mean((0, 1))
+            ce = one_hot(idx[..., 0], e).to(F32).mean((0, 1))
             aux["moe_aux"] = aux.get("moe_aux", 0.0) + e * (me * ce).sum()
         return y.reshape(b, s, d)
 
@@ -410,7 +464,7 @@ def moe(p: MoE, cfg: ModelConfig, h: torch.Tensor, *,
 
         n = g * tl
         me = total(probs.sum((0, 1))) / n
-        ce = total(F.one_hot(idx[..., 0], e).to(F32).sum((0, 1))) / n
+        ce = total(one_hot(idx[..., 0], e).to(F32).sum((0, 1))) / n
         aux["moe_aux"] = aux.get("moe_aux", 0.0) + e * (me * ce).sum()
     # back to [B, S, D]: the groups' split becomes a batch split when it
     # cuts between sequences, else the groups are gathered first
@@ -433,19 +487,21 @@ def _moe_groups(x: torch.Tensor, ws: dict, cfg: ModelConfig, cap: int):
     gate, idx = torch.topk(probs, k, dim=-1)  # [G, Tl, k], descending
     gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
 
-    flat = F.one_hot(idx, e).reshape(g, tl * k, e)  # [G, Tl*k, E]
+    flat = one_hot(idx, e).reshape(g, tl * k, e)  # [G, Tl*k, E]
     # priority order within the group: earlier tokens win capacity slots
     slot = ((torch.cumsum(flat, 1) - flat) * flat).sum(-1)  # [G, Tl*k]
     e_sel = idx.reshape(g, tl * k)
-    keep = slot < cap
+    # overflow goes to a spare slot `cap`, written and read as zeros and
+    # never computed: every index has a static shape (no boolean mask)
+    slot = slot.masked_fill(slot >= cap, cap)
     gi = torch.arange(g, device=x.device)[:, None].expand(g, tl * k)
-    sel = (gi[keep], e_sel[keep], slot[keep])
+    sel = (gi, e_sel, slot)
 
     xrep = x[:, :, None, :].expand(g, tl, k, d).reshape(g, tl * k, d)
-    buf = torch.zeros((g, e, cap, d), dtype=x.dtype, device=x.device)
-    buf[sel] = xrep[keep]
+    buf = torch.zeros((g, e, cap + 1, d), dtype=x.dtype, device=x.device)
+    buf[sel] = xrep
     # the experts' products over every group's slots at once: [E, G*C, D]
-    be = buf.transpose(0, 1).reshape(e, g * cap, d)
+    be = buf[:, :, :cap].transpose(0, 1).reshape(e, g * cap, d)
 
     if cfg.mlp_act == "swiglu":
         g_ = torch.bmm(be, ws["w_gate"]).to(F32)
@@ -455,9 +511,8 @@ def _moe_groups(x: torch.Tensor, ws: dict, cfg: ModelConfig, cap: int):
     else:
         a_ = _gelu(torch.bmm(be, ws["w_in"]).to(F32)).to(x.dtype)
         o_ = torch.bmm(a_, ws["w_out"]).to(x.dtype)
-    o_ = o_.view(e, g, cap, d).transpose(0, 1)
+    o_ = F.pad(o_.view(e, g, cap, d).transpose(0, 1), (0, 0, 0, 1))
 
-    y_slots = torch.zeros((g, tl * k, d), dtype=x.dtype, device=x.device)
-    y_slots[keep] = o_[sel]
+    y_slots = o_[sel]  # [G, Tl*k, D]; the spare slot's zeros where dropped
     y_slots = (y_slots.to(F32) * gate.reshape(g, tl * k, 1)).to(x.dtype)
     return y_slots.reshape(g, tl, k, d).sum(2), probs, idx

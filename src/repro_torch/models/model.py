@@ -243,7 +243,10 @@ def _remat_wrap(cfg: ModelConfig, fn):
     """`fn` under the config's remat policy: "none" keeps every
     activation, "dots" only the matrix products' outputs, anything else
     ("full") only the inputs.  Non-reentrant checkpointing recomputes
-    with autograd on, so a BitLinear FFN recomputes its training form."""
+    with autograd on, so a BitLinear FFN recomputes its training form.
+    The recomputation runs under the forward's sharding rules and mesh:
+    a CUDA backward runs on autograd's device thread, where the
+    thread-local `use_rules` context of the forward is not set."""
     if cfg.remat == "none":
         return fn
     kw = {}
@@ -252,7 +255,13 @@ def _remat_wrap(cfg: ModelConfig, fn):
             create_selective_checkpoint_contexts, _save_dots)
 
     def wrapped(*args):
-        return checkpoint(fn, *args, use_reentrant=False,
+        rules, mesh = R.current_rules(), R.current_mesh()
+
+        def under_rules(*a):
+            with R.use_rules(rules, mesh):
+                return fn(*a)
+
+        return checkpoint(under_rules, *args, use_reentrant=False,
                           preserve_rng_state=False, **kw)
 
     return wrapped
@@ -333,10 +342,10 @@ def _embed_in(params: CausalLM, cfg: ModelConfig, tokens, embeds):
 
 
 def _embedding(params: CausalLM, tokens) -> torch.Tensor:
-    """Rows of the embedding table (the tokens replicated on the table's
-    mesh when it is a DTensor, so its backward sees DTensors only)."""
+    """Rows of the embedding table (of a DTensor table, on its local
+    shard: `sharding.rules.sharded_embedding`)."""
     if R.is_dtensor(params.embed):
-        tokens = R.as_dtensor(tokens, params.embed.device_mesh)
+        return R.sharded_embedding(tokens, params.embed)
     return F.embedding(tokens, params.embed)
 
 
@@ -402,7 +411,7 @@ def _chunk_ce(h, labels, head) -> torch.Tensor:
     # over a vocab split: the gold logit as a masked sum, logsumexp as
     # max + log-sum-exp of the rest (the max without gradient, as
     # logsumexp's own)
-    onehot = F.one_hot(labels.long(), logits.shape[-1]).to(F32)
+    onehot = L.one_hot(labels.long(), logits.shape[-1]).to(F32)
     gold = (logits * onehot).sum(-1)
     m = logits.detach().amax(-1, keepdim=True)
     lse = (logits - m).exp().sum(-1).log() + m[..., 0]
@@ -418,6 +427,10 @@ def loss_fn(params: CausalLM, cfg: ModelConfig, batch: dict,
                               batch.get("embeds"),
                               collect_aux=cfg.n_experts > 0)
         ce = chunked_loss(params, cfg, h, batch["labels"])
+        if R.is_dtensor(ce) and not R.is_dtensor(aux):
+            # the MoE aux loss is a plain sum over the groups: replicated,
+            # so its gradient comes back plain (not as ce's DTensor)
+            aux = R.as_dtensor(aux, ce.device_mesh)
         return ce + aux_weight * aux, {"ce": ce, "moe_aux": aux}
 
 

@@ -68,7 +68,7 @@ def _mesh_sizes(mesh) -> dict[str, int]:
     if isinstance(mesh, ServeMesh):
         return mesh.sizes
     if hasattr(mesh, "mesh_dim_names"):
-        return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+        return dict(zip(mesh.mesh_dim_names, mesh.shape))
     return dict(zip(mesh.axis_names, mesh.devices.shape))
 
 
@@ -346,15 +346,37 @@ def layout(spec, shape, mesh) -> tuple:
 
     pl = placements(sanitize_spec(spec, shape, mesh), mesh)
     return tuple(Replicate() if n == 1 else q
-                 for q, n in zip(pl, mesh.mesh.shape))
+                 for q, n in zip(pl, mesh.shape))
+
+
+def place(x: torch.Tensor, mesh, placements):
+    """`x` (the same full tensor on every rank) as a DTensor with
+    `placements`: this rank's shard cut from it by its mesh coordinate,
+    with no collective and no device query, so the same code places
+    fake tensors on a fake group (`launch/specs.py`).  A shard is a copy
+    of its slice (it must not keep the whole tensor alive); a tensor
+    replicated everywhere is its own local tensor.  Each split must be
+    even, as `sanitize_spec` leaves it."""
+    from torch.distributed.tensor import DTensor
+
+    local, coord = x, mesh.get_coordinate()
+    for i, q in enumerate(placements):
+        if q.is_shard():
+            n = mesh.size(i)
+            if local.shape[q.dim] % n:
+                raise ValueError(f"dim {q.dim} of {tuple(x.shape)} does not "
+                                 f"split evenly over {n} ranks")
+            local = local.chunk(n, q.dim)[coord[i]]
+    if local is not x:
+        local = local.clone(memory_format=torch.contiguous_format)
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=x.shape, stride=x.stride())
 
 
 def distribute(x: torch.Tensor, spec, mesh):
     """`x` (the same full tensor on every rank) as a DTensor laid out by
     the sanitised `spec`."""
-    from torch.distributed.tensor import distribute_tensor
-
-    return distribute_tensor(x, mesh, layout(spec, x.shape, mesh))
+    return place(x, mesh, layout(spec, x.shape, mesh))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -369,13 +391,11 @@ class MeshPlacement:
         """x laid out here: a plain tensor (the same full tensor on every
         rank) distributed, a DTensor redistributed (gathered whole first
         when it lives on another mesh)."""
-        from torch.distributed.tensor import distribute_tensor
-
         if is_dtensor(x):
             if x.device_mesh == self.mesh:
                 return x.redistribute(self.mesh, self.placements)
             x = x.full_tensor()
-        return distribute_tensor(x.detach(), self.mesh, self.placements)
+        return place(x.detach().contiguous(), self.mesh, self.placements)
 
 
 class _Ctx(threading.local):
@@ -521,6 +541,36 @@ def keep(placements, pred) -> list:
 def summed(placements) -> list:
     """`placements` with each Partial summed (made Replicate)."""
     return keep(placements, lambda q: not q.is_partial())
+
+
+def sharded_embedding(tokens: torch.Tensor, table) -> torch.Tensor:
+    """Rows of a DTensor `table` [V, D] at `tokens` (plain, the same on
+    every rank; a DTensor is gathered whole), on the local shard: where
+    V is split each rank looks up the rows it holds and zeros elsewhere,
+    a partial sum summed over those mesh dims at once; where D is split
+    each rank gives its own columns.  Returns a DTensor.  (DTensor's own
+    embedding masks its ids with a boolean index, which a fake CUDA
+    tensor cannot run without a card.)"""
+    import torch.nn.functional as F
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = table.device_mesh
+    if is_dtensor(tokens):
+        tokens = tokens.full_tensor()
+    coord, start, rows, out = mesh.get_coordinate(), 0, table.shape[0], []
+    for i, q in enumerate(table.placements):
+        if q.is_shard(0):
+            rows //= mesh.size(i)
+            start += coord[i] * rows
+            out.append(Partial())
+        else:
+            out.append(Shard(tokens.ndim) if q.is_shard(1) else Replicate())
+    ids = tokens.long() - start
+    miss = (ids < 0) | (ids >= rows)
+    y = F.embedding(ids.masked_fill(miss, 0), table.to_local())
+    y = y.masked_fill(miss[..., None], 0)
+    return DTensor.from_local(y, mesh, out, run_check=False).redistribute(
+        mesh, summed(out))
 
 
 def sharded_matmul(x: torch.Tensor, w) -> torch.Tensor:

@@ -83,12 +83,12 @@ def loss_and_grads(cfg: ModelConfig, tcfg: TrainConfig, params, batch):
 
     if tcfg.microbatches <= 1:
         return grad_fn(batch)
-    acc = {k: torch.zeros(p.shape, dtype=F32, device=p.device)
-           for k, p in named.items()}
-    loss_sum = torch.zeros((), dtype=F32, device=params.device)
+    # float32 buffers laid out as the parameters are (DTensors on a mesh)
+    acc = {k: torch.zeros_like(p, dtype=F32) for k, p in named.items()}
+    loss_sum = None
     for mb in _split_microbatches(batch, tcfg.microbatches):
         loss, grads, metrics = grad_fn(mb)
-        loss_sum = loss_sum + loss
+        loss_sum = loss if loss_sum is None else loss_sum + loss
         for k, g in grads.items():
             acc[k].add_(g.to(F32))
         del grads

@@ -1,7 +1,10 @@
 """Two gloo ranks on the CPU, run by tests/test_torch_sharding.py in a
 subprocess: the port's sharded LM serving, MoE dispatch groups and train
 step against the unsharded port on the same weights, on (data, model)
-meshes of (1, 2) and (2, 1).  Rank 0 writes the MoE output to
+meshes of (1, 2) and (2, 1) (the step also for an MoE model over two
+microbatches), and the train launcher with --ckpt-dir
+(saved, restarted, continued) against an uninterrupted run, counting
+the checkpoint writes of each rank.  Rank 0 writes the MoE output to
 `<out>/moe_port.npz` and prints one line, "SHARDED-OK <json>", with every
 measured difference.
 
@@ -116,7 +119,8 @@ def _bitlinear_unaligned(mesh) -> dict:
             "bitlinear_k48/err": float((got - want).abs().max())}
 
 
-def _train(mesh) -> dict:
+def _train(mesh, arch="llama3.2-1b+smoke", microbatches=1,
+           prefix="train", **cut) -> dict:
     from repro_torch import configs
     from repro_torch.data.tokens import DataConfig, synthetic_stream
     from repro_torch.ft import reshard_state, state_shardings
@@ -124,9 +128,12 @@ def _train(mesh) -> dict:
     from repro_torch.train import TrainConfig, init_train_state, train_step
     from repro_torch.train.optimizer import OptimizerConfig
 
-    cfg = configs.get_config("llama3.2-1b+smoke")
+    import dataclasses
+
+    cfg = dataclasses.replace(configs.get_config(arch), **cut)
     # lr 3e-4 from the first step: a skipped or doubled update is ~lr off
-    tcfg = TrainConfig(opt=OptimizerConfig(warmup_steps=0))
+    tcfg = TrainConfig(opt=OptimizerConfig(warmup_steps=0),
+                       microbatches=microbatches)
     rules = TRAIN_RULES.resolve(mesh)
     batch = next(synthetic_stream(DataConfig(batch=4, seq_len=16,
                                              vocab_size=cfg.vocab_size)))
@@ -148,11 +155,11 @@ def _train(mesh) -> dict:
     err_m = max(float((_full(s1["opt"][t][k]) - v).abs().max())
                 for t in ("m", "v", "master")
                 for k, v in s0["opt"][t].items())
-    return {"train/loss_err": abs(float(_full(m1["loss"]))
-                                  - float(m0["loss"])),
-            "train/update_err": err, "train/update_max": moved,
-            "train/lr": tcfg.opt.lr, "train/opt_err": err_m,
-            "train/placements": str(
+    return {f"{prefix}/loss_err": abs(float(_full(m1["loss"]))
+                                      - float(m0["loss"])),
+            f"{prefix}/update_err": err, f"{prefix}/update_max": moved,
+            f"{prefix}/lr": tcfg.opt.lr, f"{prefix}/opt_err": err_m,
+            f"{prefix}/placements": str(
                 s1["params"].blocks[0].sub0.attn.wq.placements)}
 
 
@@ -184,6 +191,50 @@ def _moe(mesh, out_dir) -> dict:
     return {"moe/groups": g}
 
 
+def _ckpt(mesh, out_dir) -> dict:
+    """`launch.train --ckpt-dir` over both ranks: 2 steps saved at step
+    2, then a restart that restores it and continues to step 4, against
+    4 uninterrupted steps; each rank's writes counted."""
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.launch import train
+
+    mp = mesh.shape[1]
+    root = f"{out_dir}/ckpt_{mesh.shape[0]}x{mp}"
+    args = ["--arch", "llama3.2-1b+smoke", "--device", "cpu", "--batch", "2",
+            "--seq", "16", "--log-every", "1000", "--model-parallel", str(mp)]
+    want = train.run(args + ["--steps", "4"])["state"]
+    writes, write = [], ckpt._write_step
+
+    def counted(root, step, *a):
+        writes.append(step)
+        return write(root, step, *a)
+
+    ckpt._write_step = counted
+    try:
+        saved = ["--ckpt-dir", root, "--ckpt-every", "2"]
+        train.run(args + ["--steps", "2"] + saved)
+        got = train.run(args + ["--steps", "4"] + saved)["state"]
+    finally:
+        ckpt._write_step = write
+    equal = all(torch.equal(_full(a).detach(), _full(b).detach())
+                for (_, a), (_, b) in zip(ckpt.leaf_paths(want),
+                                          ckpt.leaf_paths(got)))
+    by_rank = [None] * dist.get_world_size()
+    dist.all_gather_object(by_rank, writes)
+    # the leaves each rank holds for a save: all on the writer, none else
+    held = [None] * dist.get_world_size()
+    dist.all_gather_object(held, [len(ckpt._arrays(got)),
+                                  len(ckpt._arrays(got, copy=True))])
+    import os
+
+    return {"ckpt/equal": equal, "ckpt/writes_by_rank": by_rank,
+            "ckpt/held_by_rank": held,
+            "ckpt/n_leaves": len(ckpt.leaf_paths(got)),
+            "ckpt/dirs": sorted(os.listdir(root)),
+            "ckpt/placements": str(
+                got["params"].blocks[0].sub0.attn.wq.placements)}
+
+
 def worker(rank: int, port: int, out_dir: str) -> None:
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
@@ -196,7 +247,13 @@ def worker(rank: int, port: int, out_dir: str) -> None:
             mesh = make_mesh(shape, ("data", "model"), "cpu")
             tag = "x".join(map(str, shape))
             for k, v in {**_serve(mesh), **_train(mesh),
-                         **_bitlinear_unaligned(mesh)}.items():
+                         # the MoE's aux loss and two microbatches; a
+                         # capacity that drops no token, so the dispatch
+                         # groups of a data split route as one group does
+                         **_train(mesh, "mixtral-8x7b+smoke", 2,
+                                  "train_moe_mb2", capacity_factor=8.0),
+                         **_bitlinear_unaligned(mesh),
+                         **_ckpt(mesh, out_dir)}.items():
                 res[f"{tag}/{k}"] = v
             if shape == (2, 1):
                 res.update(_moe(mesh, out_dir))

@@ -138,3 +138,34 @@ def test_launcher_refuses_model_parallel():
     assert tuple(capped["mesh"].mesh.shape) == (1, 1)
     assert [r.tokens for r in capped["results"]] == \
         [r.tokens for r in serve.main(args)]
+
+
+def test_package_exports_equal_reference():
+    """`repro_torch.serve` and `repro_torch.checkpoint` export the
+    reference packages' names (the server's lazily, as there), and
+    `repro_torch.kernels` its `ops` and `ref`."""
+    import importlib
+    import inspect
+
+    import repro.kernels
+    import repro_torch.kernels
+
+    def public(mod):
+        return {n for n, v in vars(mod).items()
+                if not n.startswith("_") and not inspect.ismodule(v)}
+
+    for pkg in ("serve", "checkpoint"):
+        ref = importlib.import_module(f"repro.{pkg}")
+        port = importlib.import_module(f"repro_torch.{pkg}")
+        assert public(port) == public(ref), pkg
+    import repro.serve
+    import repro_torch.serve
+
+    for name in ("PicBnnServer", "ClassifyResult", "GroupHandle",
+                 "ServerStats", "ModelStats"):
+        assert getattr(repro_torch.serve, name).__name__ == \
+            getattr(repro.serve, name).__name__
+    for name in ("ops", "ref"):
+        assert inspect.ismodule(getattr(repro.kernels, name))
+        assert getattr(repro_torch.kernels, name).__name__ == \
+            f"repro_torch.kernels.{name}"

@@ -7,9 +7,10 @@ sharded launchers on a one-rank gloo group; and two gloo ranks in a
 subprocess (meshes (1, 2) and (2, 1)): sharded serving (logits to 1e-5,
 CAM votes and Engine tokens equal, no float ±1 fallback), a sharded
 train step to 1e-5, and the MoE's dispatch groups (G = 2) to 1e-5 of the
-reference's `moe`.  The reference's own mesh paths fail under the
-installed JAX, so the sharded port is held against the unsharded port
-where the reference cannot run."""
+reference's `moe`; the train launcher's --ckpt-dir over both ranks (one
+writer, a restart equal to an uninterrupted run).  The reference's own
+mesh paths fail under the installed JAX, so the sharded port is held
+against the unsharded port where the reference cannot run."""
 
 import json
 import os
@@ -133,6 +134,34 @@ def test_serve_mesh_shardings_split_as_the_reference_places():
         assert R.logical_axis_size("batch") == 4
         assert R.logical_to_spec("batch", "classes") == ("data", None)
     assert R.logical_to_spec("batch", "classes") == (None, None)
+
+
+def test_remat_recomputes_under_the_forwards_rules():
+    """A remat block's recomputation runs under the sharding rules and
+    mesh of its forward, also when the backward runs on another thread
+    (as a CUDA backward runs on autograd's device thread, where the
+    thread-local `use_rules` context is not set)."""
+    import dataclasses
+    import threading
+
+    cfg = dataclasses.replace(configs.get_config("llama3.2-1b+smoke"),
+                              remat="full")
+    seen = []
+
+    def block(x):
+        seen.append((R.current_rules(), R.current_mesh()))
+        return torch.sin(x).exp()
+
+    mesh = _Mesh(("data", "model"), (1, 1))
+    rules = R.TRAIN_RULES.resolve(mesh)
+    x = torch.randn(3, requires_grad=True)
+    with R.use_rules(rules, mesh):
+        y = M._remat_wrap(cfg, block)(x).sum()
+    t = threading.Thread(target=y.backward)
+    t.start()
+    t.join()
+    assert seen == [(rules, mesh), (rules, mesh)]  # forward, recomputation
+    assert x.grad is not None and R.current_rules() is None
 
 
 # ---------------------------------------------------------------------------
@@ -324,6 +353,38 @@ def test_sharded_train_step_equals_unsharded(two_ranks, mesh):
     assert res[f"{mesh}/train/update_max"] >= lr / 2
     assert res[f"{mesh}/train/update_err"] <= lr / 30
     assert res[f"{mesh}/train/opt_err"] <= 1e-5
+
+
+@pytest.mark.parametrize("mesh", ["1x2", "2x1"])
+def test_sharded_moe_train_step_over_microbatches_equals_unsharded(
+        two_ranks, mesh):
+    """mixtral-8x7b+smoke (capacity factor 8: no token dropped), two
+    microbatches: the float32 gradient buffers laid out as the DTensor
+    parameters, and the MoE aux loss replicated before it meets the
+    DTensor cross entropy (each raised before)."""
+    res, _, _ = two_ranks
+    key = f"{mesh}/train_moe_mb2"
+    assert "Shard" in res[f"{key}/placements"]
+    assert res[f"{key}/loss_err"] <= 1e-5
+    lr = res[f"{key}/lr"]
+    assert res[f"{key}/update_max"] >= lr / 2
+    assert res[f"{key}/update_err"] <= lr / 30
+    assert res[f"{key}/opt_err"] <= 1e-5
+
+
+@pytest.mark.parametrize("mesh", ["1x2", "2x1"])
+def test_ckpt_dir_over_two_ranks_one_writer_restart_equal(two_ranks, mesh):
+    """`launch.train --ckpt-dir` on both ranks: rank 0 alone writes (steps
+    2 and 4) and alone holds the gathered leaves of a save, and a run
+    saved at step 2 and restarted equals four uninterrupted steps, leaf
+    for leaf (`torch.equal`)."""
+    res, _, _ = two_ranks
+    assert "Shard" in res[f"{mesh}/ckpt/placements"]
+    assert res[f"{mesh}/ckpt/writes_by_rank"] == [[2, 4], []]
+    n = res[f"{mesh}/ckpt/n_leaves"]
+    assert res[f"{mesh}/ckpt/held_by_rank"] == [[n, n], [0, 0]]
+    assert res[f"{mesh}/ckpt/dirs"] == ["step_00000002", "step_00000004"]
+    assert res[f"{mesh}/ckpt/equal"] is True
 
 
 def test_moe_dispatch_groups_equal_reference(two_ranks, monkeypatch):

@@ -331,13 +331,15 @@ def test_async_checkpointer_round_trip_snapshot_and_errors(tmp_path):
     with pytest.raises(OSError):
         bad.wait()
     bad.wait()
-    # the writer runs on a thread of its own
+    # the writer (the step's files, `_write_step`) runs on a thread of
+    # its own
     seen = []
-    orig = tckpt.save
-    tckpt.save = lambda *a, **k: seen.append(threading.current_thread())
+    orig = tckpt._write_step
+    tckpt._write_step = lambda *a, **k: seen.append(
+        threading.current_thread())
     try:
         ck.save_async(9, tree)
         ck.wait()
     finally:
-        tckpt.save = orig
+        tckpt._write_step = orig
     assert seen and seen[0] is not threading.current_thread()
