@@ -113,7 +113,19 @@ exit 0):
    against its ctypes launch called straight, a call at the decode
    shapes, and decode ms a token of +binary-ffn, +cam-head and the plain
    model with the launches called straight and through the ops,
-   alternating.
+   alternating.  Then the long context (`lm_long_phase`), counts from 0:
+   llama3.2-1b+binary-ffn+cam-head at full width and depth prefills one
+   sequence of 32,768 tokens through `prefill_step` (attention in key
+   chunks of `attn_chunk`) and decodes 4 tokens over that cache (read
+   in its bf16 layout a chunk at a time); kernel 1 must launch in the
+   prefill and every decode step, kernel 2 in every decode step.
+   Prefill seconds, decode ms a token and `max_memory_allocated` beside
+   one layer's S x S float32 score bytes.  Kernels 1 and 2 on the
+   operands of their first call of each shape on that path (BitLinear
+   at M = 32,768 and M = 1, the CAM head at B = 1) == their plain
+   versions and the library call, with their times.  llama3.2-1b at 2
+   blocks, float32, prefill 2,048 + 4 decode steps, card == CPU within
+   LM_F32_ATOL + LM_F32_RTOL |cpu|.  An `{"lm_long": ...}` line.
 8. LM training, with every launch counter set to 0 just before its
    path: the reference's 100M example (custom-100m, float32, 300 steps
    of 8 x 512 through `launch.train` with the Supervisor and a
@@ -130,8 +142,9 @@ exit 0):
    2 blocks in float32 at lr 3e-4, card against CPU (loss, grad norm,
    every gradient, m and v leaf, the update where |g| >= 1e3 * eps);
    EF-signSGD card against CPU and three compressed steps; mixtral-8x7b
-   (1 block) and falcon-mamba-7b (2 blocks) at full width, three steps
-   each; examples/ft_demo.py's scenario (failures at 13 and 27, a
+   (1 block, 4 x 128) and falcon-mamba-7b (2 blocks, 4 x 512: two
+   rematerialised scan chunks) at full width, three steps each, with
+   their peak memory; examples/ft_demo.py's scenario (failures at 13 and 27, a
    straggler at 31-35) under deterministic algorithms, final state ==
    the failure-free run's.  ms a step, tokens/s, peak memory and the
    losses in an `{"lm_train": ...}` line.
@@ -154,12 +167,13 @@ exit 0):
    repro_torch.launch.dryrun` call a subprocess (llama3.2-1b train_4k,
    prefill_32k and decode_32k on 16 x 16, mixtral-8x7b decode_32k on
    2 x 16 x 16, llama3.2-1b+binary-ffn+cam-head decode_32k with kernels
-   1 and 2 in their fake forms), each "ok", with peak GiB a device, the
-   bottleneck, the roofline's three terms and the trace's seconds; (b)
-   two of phase 9's (1, 1)-mesh runs (the served model's decode step at
-   B = 4, the 2-block float32 train step) run on the card under the
-   dry-run's counter, the counts set to 0 just before, against the same
-   cells traced on a fake (1, 1) group: FLOPs, binary operations, HBM
+   1 and 2 in their fake forms), each "ok", with peak GiB a device, the bottleneck, the roofline's three
+   terms and the trace's seconds; (b) two of phase 9's (1, 1)-mesh runs
+   (the served model's decode step at B = 4, the 2-block float32 train
+   step) and a falcon-mamba-7b train step (2 blocks, float32, 2 x 512:
+   two scan chunks) run on the card under the dry-run's counter, the
+   counts set to 0 just before, against the same cells traced on a fake
+   (1, 1) group (there one scan chunk runs, charged twice): FLOPs, binary operations, HBM
    bytes and collectives equal, argument bytes equal, the peak estimate
    within DRY_PEAK_RTOL of `torch.cuda.max_memory_allocated`, the
    roofline bound as a fraction of a warm step (timed once the dry-run
@@ -167,9 +181,10 @@ exit 0):
    in the decode step through their custom ops and equal to their plain
    versions on the rows it packed.  A `{"dryrun": ...}` line.
 11. A `{"kernels": [...]}` line (launches on the kernel's path, on the
-   silicon, train, LM, LM-training, mesh and dry-run paths, error,
-   times, sampled-form times, bound, the LM-shape rows), then, as the
-   last line, `{"ok": true, "device": ...}`.
+   silicon, train, LM, long-context, LM-training, mesh and dry-run
+   paths, error, times, sampled-form times, bound, the LM-shape and
+   long-context rows), then, as the last line, `{"ok": true, "device":
+   ...}`.
 
 Without CUDA, or without the rest of the repository beside it, the script
 exits non-zero before printing any result.  It imports nothing of JAX.
@@ -1159,9 +1174,10 @@ def train_phase(dev, smi: str, counted, quick: bool) -> dict:
 # each, in batches of 4 (the reference launcher's defaults)
 LM_REQUESTS, LM_PROMPT, LM_NEW, LM_BATCH = 8, 16, 16, 4
 # bf16 logits, teacher-forced decode against forward over the same
-# sequence: decode rounds the query and the softmax weights to bf16
-# where forward keeps them in float32 (the reference's two attention
-# paths) and every projection rounds its output to bf16, so through
+# sequence: decode rounds the query to bf16 where forward keeps it in
+# float32 (the reference's two attention paths; the reference's decode
+# rounds its softmax weights too) and every projection rounds its output
+# to bf16, so through
 # 16-48 layers logits of O(1-5) move by a few hundredths.  A BitLinear
 # FFN binarizes its inputs: an input within that rounding of 0 flips its
 # sign between the two paths and moves every output of the projection by
@@ -1682,6 +1698,187 @@ def lm_phase(dev, smi: str, card, counted, quick: bool) -> dict:
                               max_new=LM_NEW, batch=LM_BATCH))
 
 
+# Phase 7's long context: one sequence of LONG_S tokens through
+# `prefill_step`, then LONG_DECODE decode steps over that cache (full
+# width and depth, bf16); the card-against-CPU check on a 2-block float32
+# cut at LONG_CHECK_S
+LONG_ARCH = "llama3.2-1b+binary-ffn+cam-head"
+LONG_S, LONG_DECODE, LONG_CHECK_S = 32768, 4, 2048
+
+
+@contextlib.contextmanager
+def first_operands(seen: dict):
+    """`kernels.ops`' kernel 1 and 2 wrappers keeping, in seen, the
+    operands of their first call of each operand shape, keyed (kernel
+    name, shapes), and calling the wrapper as before."""
+    from repro_torch.kernels import ops
+
+    saved = ops.binary_gemm_hd, ops.cam_vote
+
+    def keep(fn):
+        def call(*args, **kw):
+            key = (fn.__name__, *(tuple(a.shape) for a in args))
+            seen.setdefault(key, args)
+            return fn(*args, **kw)
+        return call
+
+    ops.binary_gemm_hd, ops.cam_vote = keep(saved[0]), keep(saved[1])
+    try:
+        yield
+    finally:
+        ops.binary_gemm_hd, ops.cam_vote = saved
+
+
+def lm_long_phase(dev, smi: str, card, counted, quick: bool) -> dict:
+    """Phase 7, long context: llama3.2-1b+binary-ffn+cam-head at full
+    width and depth (bf16) prefills one sequence of LONG_S = 32,768
+    tokens through `prefill_step` (the chunked online-softmax attention,
+    `attn_chunk` keys at a time) and decodes LONG_DECODE tokens over that
+    cache (read in its stored bf16 layout a chunk at a time), every
+    launch count set to 0 just before: kernel 1 (the BitLinear FFN) must
+    launch in the prefill and in every decode step, kernel 2 (the CAM
+    head) in every decode step.  Prints the prefill's seconds, decode ms
+    a token, `torch.cuda.max_memory_allocated`, and beside it the bytes
+    of one layer's [B, H, S, S] float32 scores, which the unchunked form
+    would hold.  Checks: the prefill's logits finite, the votes integers
+    in 0..P; kernels 1 and 2 on the operands of their first call of each
+    shape on the path (`first_operands`: BitLinear at M = LONG_S in the
+    prefill and M = 1 in decode, the CAM head at B = 1) equal to their
+    plain versions and the library call (`lm_kernel_rows`, which times
+    them).  Then llama3.2-1b at 2 blocks, float32, prefills
+    LONG_CHECK_S = 2,048 tokens and decodes LONG_DECODE on the card and
+    on the CPU: every step's logits equal within LM_F32_ATOL +
+    LM_F32_RTOL |cpu| (the same arithmetic in another summation order,
+    as phase 7's float32 forward).  `quick` (a CPU rehearsal) takes the
+    `+smoke` configs at 256 and 64 tokens."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    from repro_torch.serve import steps
+
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    smoke = "+smoke" if quick else ""
+    s, s_check = (256, 64) if quick else (LONG_S, LONG_CHECK_S)
+    here = {} if on_card else {"device": dev}
+    cfg = configs.get_config(LONG_ARCH + smoke)
+    gen = torch.Generator(dev).manual_seed(SEED + 24)
+    params = M.init_params(cfg, gen, **here)
+    tokens = torch.randint(1, cfg.vocab_size, (1, s + LONG_DECODE),
+                           generator=gen, dtype=torch.int32, device=dev)
+    reset_peak(dev)
+
+    # -------------------------- the long-context path, counts from 0
+    for fn in counted:
+        fn.launches = 0
+
+    def counts():
+        return {fn.__name__: fn.launches for fn in counted}
+
+    seen: dict = {}
+    with first_operands(seen):
+        t0 = time.perf_counter()
+        logits, cache = steps.prefill_step(cfg, params,
+                                           {"tokens": tokens[:, :s]},
+                                           max_len=s + LONG_DECODE)
+        sync(dev)
+        prefill_s = time.perf_counter() - t0
+        per_step = [counts()]
+        decode_ms, votes = [], []
+        for i in range(LONG_DECODE):
+            before = counts()
+            t0 = time.perf_counter()
+            v, cache = steps.decode_step(cfg, params, cache,
+                                         tokens[:, s + i:s + i + 1], s + i)
+            sync(dev)
+            decode_ms.append((time.perf_counter() - t0) * 1e3)
+            votes.append(v)
+            per_step.append({k: n - before[k] for k, n in counts().items()})
+    peak = peak_gb(dev)
+    launches = counts()
+    scores_gb = 1 * cfg.n_heads * s * s * 4 / 1e9
+    dec = [round(x, 2) for x in decode_ms]
+    print(f"lm long context: {cfg.name}, prefill B = 1, S = {s}: "
+          f"{prefill_s:.2f} s; decode ms a token {dec}; "
+          f"max_memory_allocated {peak} GB against "
+          f"{scores_gb:.1f} GB of one layer's S x S float32 scores; "
+          f"launches {launches}, per step {per_step} ({smi})")
+    for name in ("binary_gemm_hd", "cam_vote"):
+        require(launches[name] > 0 or not on_card,
+                f"{name} was not launched on the long-context path")
+    require(not on_card or (per_step[0]["binary_gemm_hd"] > 0 and all(
+        st["binary_gemm_hd"] > 0 and st["cam_vote"] > 0
+        for st in per_step[1:])),
+        f"long context: a step without its kernels: {per_step}")
+    require(logits.shape == (1, cfg.vocab_size)
+            and bool(torch.isfinite(logits).all()),
+            f"long context: prefill logits {tuple(logits.shape)} not finite")
+    for v in votes:
+        require(bool(((v >= 0) & (v <= cfg.cam_head_thresholds)
+                      & (v == v.round())).all()),
+                "long context: CAM-head votes outside 0..P")
+    # kernels 1 and 2 on the path's own operands, against their plain
+    # versions and the library call
+    del cache, logits, votes
+    with torch.no_grad():
+        k1 = [gemm_case(f"BitLinear long M={a[0].shape[0]}", *a)
+              for (name, *_), a in seen.items() if name == "binary_gemm_hd"]
+        k2 = [vote_case(f"CAM head long B={a[0].shape[0]}", *a)
+              for (name, *_), a in seen.items() if name == "cam_vote"]
+        require(any(a[0].shape[0] == s for (name, *_), a in seen.items()
+                    if name == "binary_gemm_hd") and k2,
+                f"long context: no operands captured: {list(seen)}")
+        rows = {"binary_gemm_hd": lm_kernel_rows(card, "binary_gemm_hd", k1),
+                "cam_vote": lm_kernel_rows(card, "cam_vote", k2)}
+    del params, seen, k1, k2
+    reset_peak(dev)
+
+    # ---------- llama3.2-1b, 2 blocks, float32: card against the CPU
+    cfg32 = dataclasses.replace(configs.get_config("llama3.2-1b" + smoke),
+                                n_layers=2, dtype="float32")
+    m32 = M.init_params(cfg32, gen, **here)
+    cpu32 = M.CausalLM(cfg32, "cpu")
+    cpu32.load_state_dict({k: v.cpu() for k, v in m32.state_dict().items()})
+    toks = torch.randint(1, cfg32.vocab_size, (1, s_check + LONG_DECODE),
+                         generator=gen, dtype=torch.int32, device=dev)
+    worst = 0.0
+    sides = []
+    for model, tk in ((m32, toks), (cpu32, toks.cpu())):
+        lg, c = steps.prefill_step(cfg32, model, {"tokens": tk[:, :s_check]},
+                                   max_len=s_check + LONG_DECODE)
+        out = [lg.cpu()]
+        for i in range(LONG_DECODE):
+            lg, c = steps.decode_step(cfg32, model, c,
+                                      tk[:, s_check + i:s_check + i + 1],
+                                      s_check + i)
+            out.append(lg.cpu())
+        sides.append(torch.stack(out))
+    worst = float((sides[0] - sides[1]).abs().max())
+    require(bool(torch.isfinite(sides[0]).all()) and bool(
+        ((sides[0] - sides[1]).abs() <= LM_F32_ATOL
+         + LM_F32_RTOL * sides[1].abs()).all()),
+        f"long context f32 2 blocks: card != CPU (max {worst})")
+    print(f"  llama3.2-1b, 2 blocks, float32, prefill {s_check} + "
+          f"{LONG_DECODE} decode steps: card == CPU, max |dlogit| "
+          f"{worst:.2e} (tol {LM_F32_ATOL} + {LM_F32_RTOL}|cpu|)")
+    del m32, cpu32, sides
+    reset_peak(dev)
+    phase_s = time.perf_counter() - t_phase
+    print(f"LM long-context phase: {phase_s:.1f} s")
+    return dict(arch=cfg.name, batch=1, seq=s, decode_steps=LONG_DECODE,
+                prefill_s=prefill_s, decode_ms=decode_ms,
+                decode_ms_per_token=float(np.mean(decode_ms[1:] or
+                                                  decode_ms)),
+                max_memory_allocated_gb=peak,
+                sxs_scores_one_layer_gb=scores_gb, attn_chunk=cfg.attn_chunk,
+                launches=launches, launches_per_step=per_step,
+                kernels=rows,
+                f32_check=dict(seq=s_check, max_abs=worst,
+                               atol=LM_F32_ATOL, rtol=LM_F32_RTOL),
+                phase_s=phase_s, card=smi)
+
+
 # ------------------------------------------------------- LM training (8)
 # (a) the reference's 100M example: examples/lm_train.py --preset 100m
 TRAIN_100M = ["--arch", "custom-100m", "--steps", "300", "--batch", "8",
@@ -2066,8 +2263,9 @@ def lm_train_phase(dev, smi: str, card, counted, quick: bool) -> dict:
     wide = {}
     for key, c, b, s in (
             ("mixtral-8x7b/1", cut("mixtral-8x7b", n_layers=1), 4, 128),
+            # S = 512: two chunks of the Mamba scan, each rematerialised
             ("falcon-mamba-7b/2", cut("falcon-mamba-7b", n_layers=2), 4,
-             128)):
+             512)):
         reset_peak(dev)
         st = init_train_state(c, TrainConfig(), gen, **dev_kw)
         fn, it = make_train_step(c, TrainConfig()), data(c, b, s)
@@ -2475,6 +2673,12 @@ DRY_DECODE = dict(label="decode", arch="llama3.2-1b+binary-ffn+cam-head",
 DRY_TRAIN = dict(label="train", arch="llama3.2-1b",
                  cut={"n_layers": 2, "dtype": "float32"},
                  shape=("train_2x64", "train", 64, 2))
+# and a Mamba train step over two scan chunks (falcon-mamba-7b, 2 blocks,
+# float32, 2 x 512): the fake trace runs one chunk and charges it twice,
+# the card runs both
+DRY_MAMBA = dict(label="mamba_train", arch="falcon-mamba-7b",
+                 cut={"n_layers": 2, "dtype": "float32"},
+                 shape=("train_2x512", "train", 512, 2))
 # peak_estimate_gib against torch.cuda.max_memory_allocated (above what
 # was allocated before the step's arguments): the estimate counts each
 # storage's bytes, the allocator rounds each block up to 512 bytes and
@@ -2601,12 +2805,16 @@ def dryrun_phase(dev, smi: str, counted, quick: bool) -> dict:
     a subprocess: llama3.2-1b train_4k, prefill_32k and decode_32k on the
     16 x 16 pod mesh, mixtral-8x7b decode_32k on the 2 x 16 x 16
     multi-pod mesh, and llama3.2-1b+binary-ffn+cam-head decode_32k, which
-    puts kernels 1 and 2 through their fake forms; each must be "ok".
-    Printed per cell: peak GiB a device, the bottleneck, the three terms
-    and the trace's seconds.
-    (b) Two of phase 9's runs on a (1, 1) mesh, run on the card under the
-    dry-run's cost counter (one NCCL rank), against the same cells traced
-    on a fake (1, 1) group in a subprocess: FLOPs, binary operations, HBM
+    puts kernels 1 and 2 through their fake forms; each must be "ok"
+    (the Mamba cells trace in `scripts/torch_dryrun_sweep.py` only: one
+    takes over a minute, and (b)'s Mamba step holds the trip rule on the
+    card).  Printed per cell: peak GiB a device, the bottleneck, the
+    three terms and the trace's seconds.
+    (b) Two of phase 9's runs on a (1, 1) mesh, and a Mamba train step of
+    two scan chunks (falcon-mamba-7b, 2 blocks, float32, 2 x 512), run on
+    the card under the dry-run's cost counter (one NCCL rank), against
+    the same cells traced on a fake (1, 1) group in a subprocess (one
+    scan chunk run, charged twice): FLOPs, binary operations, HBM
     bytes and collective count equal; argument bytes equal the state's
     bytes; peak_estimate_gib within DRY_PEAK_RTOL of
     `torch.cuda.max_memory_allocated`; the roofline's step_time_lb_s as a
@@ -2626,7 +2834,8 @@ def dryrun_phase(dev, smi: str, counted, quick: bool) -> dict:
     env = {**os.environ, "PYTHONPATH": str(root / "src")}
     smoke = "+smoke" if quick else ""
     cells_b = [dict(c, arch=c["arch"] + smoke) for c in (DRY_DECODE,
-                                                          DRY_TRAIN)]
+                                                          DRY_TRAIN,
+                                                          DRY_MAMBA)]
     procs = [subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", *a, "--out",
          str(out_dir)], cwd=root, env=env, stdout=subprocess.PIPE,
@@ -3132,6 +3341,8 @@ def run(dev: torch.device, b_main: int, batches, card: Card,
     # ------------------------------------------- the LM path (phase 7)
     lm = lm_phase(dev, smi, card, counted, quick=not on_card)
     print(json.dumps({"lm": lm}))
+    lm_long = lm_long_phase(dev, smi, card, counted, quick=not on_card)
+    print(json.dumps({"lm_long": lm_long}))
 
     # ---------------------------------------- LM training (phase 8)
     lm_train = lm_train_phase(dev, smi, card, counted, quick=not on_card)
@@ -3168,6 +3379,9 @@ def run(dev: torch.device, b_main: int, batches, card: Card,
             silicon_launches=silicon["launches"][name],
             train_launches=train["launches"][name],
             lm_launches=lm["launches"][name], lm=lm["kernels"].get(name),
+            # phase 7's long context: prefill at S = 32,768 and decode
+            lm_long_launches=lm_long["launches"][name],
+            lm_long=lm_long["kernels"].get(name),
             lm_train_launches=lm_train["launches"][name],
             # phase 9: fanout="spmd" (kernels 3/4) and the sharded LM
             # serving launcher (kernels 1/2), each counted from 0
@@ -3181,7 +3395,9 @@ def run(dev: torch.device, b_main: int, batches, card: Card,
             sampled=r.get("sampled"),
             equal=True, max_abs_err=max(
                 v["max_abs_err"] for v in [*r["per_model"].values(),
-                                           *lm["kernels"].get(name, [])]),
+                                           *lm["kernels"].get(name, []),
+                                           *lm_long["kernels"].get(name,
+                                                                   [])]),
             ms=main["ms"], kernel_ms=main["ms"], call_ms=main["call_ms"],
             plain_ms=main["plain_ms"],
             bound_ms=main["bound_ms"], bound_by=main["bound_by"],

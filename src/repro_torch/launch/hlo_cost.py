@@ -20,8 +20,18 @@ ones under `FakeTensorMode` for a dry-run) and keeps the reference's
     their own key, `binary_ops`: 2 * M * N * 32 * Kw bit-operations (an
     AND or XOR and an add per bit pair), and kernel 2's B * C * P
     threshold compares.  They are not bf16 FLOPs;
-  * trips: an eager loop runs every trip, so each is counted (the
-    walker multiplies a scan's body by its trip count);
+  * trips: an eager loop runs every trip, so each is counted, except a
+    loop of equal chunks run through `models.scan.scan_chunks` (the
+    Mamba scan, and attention's key chunks under autograd).  While a
+    counter is entered it is the trip hook of `models.scan`: on fake
+    tensors that loop runs the first chunk's body alone, and the counter
+    charges its FLOPs, bytes, op count and the storage it leaves alive
+    n_chunks times (`trip_region`), as the walker multiplies a while
+    body by its trip count (`hlo_cost.py:309-316` of the reference); the
+    carry's set-up and its last value are charged once, outside the
+    trips.  The steps inside a Mamba chunk follow the same rule.  On
+    real tensors every chunk and step runs and is counted, and the two
+    agree because the chunks are padded to the same work;
   * each `_c10d_functional` collective charged wire bytes by the walker's
     formulas, with n the size of the op's own group:
         all-gather       (n-1)/n * result
@@ -60,6 +70,8 @@ from collections import defaultdict
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
+
+from repro_torch.models import scan
 
 # The NVIDIA H100 SXM5's L2 is 50 MiB (NVIDIA H100 Tensor Core GPU
 # Architecture whitepaper).  A tensor of at most half of it leaves room
@@ -210,18 +222,45 @@ class CostCounter(TorchDispatchMode):
         self.peak_bytes = 0
         self._new: dict = {}  # id(storage) -> bytes, storage made inside
         self._marks = None
+        self.trips = 1  # the charge of each op (`trip_region`)
 
     # ---------------------------------------------------------- lifetime
     def __enter__(self):
         self._marks = _propagation_marked()
         self._marks.__enter__()
+        self._hook = scan.set_trip_hook(self._one_trip)
         return super().__enter__()
 
     def __exit__(self, *exc):
         try:
             return super().__exit__(*exc)
         finally:
+            scan.set_trip_hook(self._hook)
             self._marks.__exit__(*exc)
+
+    def _one_trip(self, t: torch.Tensor):
+        """The trip hook: self on a fake tensor (a dry-run's trace, where
+        one trip of a loop of equal trips is charged for all), else None."""
+        from torch._subclasses.fake_tensor import is_fake
+
+        return self if is_fake(t) else None
+
+    @contextlib.contextmanager
+    def trip_region(self, n: int):
+        """Inside, each op is charged n times (one trip run for n); the
+        storage made inside and still alive at the end is charged n times
+        from then on, until it is freed."""
+        before = set(self._new)
+        self.trips *= n
+        try:
+            yield
+        finally:
+            self.trips //= n
+            for key in set(self._new) - before:
+                extra = self._new[key] * (n - 1)
+                self._new[key] += extra
+                self.live_bytes += extra
+            self.peak_bytes = max(self.peak_bytes, self.live_bytes)
 
     def made_here(self, t: torch.Tensor) -> bool:
         """Whether t's storage was made inside the step."""
@@ -236,10 +275,11 @@ class CostCounter(TorchDispatchMode):
         self._new[key] = n
         self.live_bytes += n
         self.peak_bytes = max(self.peak_bytes, self.live_bytes)
-        weakref.finalize(st, self._free, key, n)
+        weakref.finalize(st, self._free, key)
 
-    def _free(self, key, n) -> None:
-        if self._new.pop(key, None) is not None:
+    def _free(self, key) -> None:
+        n = self._new.pop(key, None)
+        if n is not None:
             self.live_bytes -= n
 
     # ------------------------------------------------------------ counts
@@ -281,7 +321,7 @@ class CostCounter(TorchDispatchMode):
         if ns == "prim" or name in _NO_COST or func.is_view:
             return
         t = self.totals
-        t.n_ops += 1
+        t.n_ops += self.trips
         flops = binary = 0.0
         key = f"{ns}.{name}@{list(outs[0].shape) if outs else []}"
         if ns in _FUNCOL_NS and name in COLLECTIVES:
@@ -301,6 +341,8 @@ class CostCounter(TorchDispatchMode):
         else:  # an in-place op reads its operand and writes it back
             hb = sum(self._charge(a) for a in ins) + sum(
                 self._charge(o) for o in outs)
+        n = self.trips
+        flops, binary, hb = flops * n, binary * n, hb * n
         t.flops += flops
         t.binary_ops += binary
         t.hbm_bytes += hb
@@ -311,7 +353,7 @@ class CostCounter(TorchDispatchMode):
                              "in": [list(a.shape) for a in ins],
                              "out": [list(o.shape) for o in outs],
                              "flops": flops, "binary_ops": binary,
-                             "hbm_bytes": hb})
+                             "hbm_bytes": hb, "trips": n})
 
     def _collective(self, kind, name, ins, outs, args, key) -> None:
         import torch.distributed as dist
@@ -330,19 +372,22 @@ class CostCounter(TorchDispatchMode):
             wire = 2.0 * opnd * frac
         else:
             wire = opnd if n > 1 else 0.0
+        trips = self.trips
+        wire, opnd, res = wire * trips, opnd * trips, res * trips
         t = self.totals
         t.collective_wire_bytes += wire
         t.collective_operand_bytes += opnd
         t.by_collective[kind] += wire
         t.wire_by_link[_link(dist.get_process_group_ranks(pg))] += wire
-        t.collective_count += 1
+        t.collective_count += trips
         t.hbm_bytes += opnd + res
         t.hbm_by_op[key] += opnd + res
         if self.record:
             self.ops.append({"op": f"collective.{name}", "group_size": n,
                              "in": [list(a.shape) for a in ins],
                              "out": [list(o.shape) for o in outs],
-                             "wire_bytes": wire, "hbm_bytes": opnd + res})
+                             "wire_bytes": wire, "hbm_bytes": opnd + res,
+                             "trips": trips})
 
 
 def _binary_ops(name: str, ins) -> float:

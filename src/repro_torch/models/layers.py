@@ -23,6 +23,8 @@ Softmax and norms run in float32.
 
 from __future__ import annotations
 
+import functools
+import threading
 from typing import Optional
 
 import torch
@@ -30,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.scan import scan_chunks
 from repro_torch.sharding import shard
 from repro_torch.sharding.rules import (as_dtensor, is_dtensor, keep, local,
                                         logical_axis_size, sharded_matmul)
@@ -125,7 +128,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Attention (GQA, causal + sliding window, rolling decode cache)
+# Attention (GQA, chunked online softmax, causal + sliding window, rolling
+# decode cache)
 # ---------------------------------------------------------------------------
 class Attention(nn.Module):
     """wq [d, hq, dh], wk / wv [d, hkv, dh], wo [hq, dh, d]."""
@@ -159,22 +163,96 @@ def _proj_heads(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _matmul(h, w.flatten(1)).view(b, s, w.shape[1], w.shape[2])
 
 
-def _masked_softmax_attention(q, k, v, q_pos, k_pos, window):
-    """Causal + window masked softmax attention in float32.
+class _ChunkScope(threading.local):
+    depth = 0
 
-    q: [B, G, R, Sq, dh]; k, v: [B, G, Sk, dh]; q_pos [B, Sq], k_pos
-    [B, Sk] absolute positions (-1 = invalid key); attend iff
-    0 <= qp - kp < window.  The reference's chunked online softmax
-    (`_flash_attention`) computes the same function.
+
+_CHUNK_SCOPE = _ChunkScope()
+
+
+def in_chunk_body() -> bool:
+    """Whether an attention chunk's body is running on this thread (remat
+    "dots" saves no product made there: `models.model._save_dots`)."""
+    return _CHUNK_SCOPE.depth > 0
+
+
+def _attention_chunk(m, l, acc, qf, k_i, v_i, q_pos, kp_i, window: int):
+    """One key chunk of the online softmax: scores of qf [B, G, R, Sq, dh]
+    (float32, scaled) against k_i [B, C, G, dh] in float32, masked to
+    0 <= qp - kp < window with kp >= 0, folded into the running max m,
+    sum l [B, G, R, Sq] and acc [B, G, R, Sq, dh] with the exp(m - m_new)
+    correction.  v_i [B, C, G, dh]; kp_i [B, C] int32."""
+    _CHUNK_SCOPE.depth += 1
+    try:
+        s = torch.einsum("bgrqd,bcgd->bgrqc", qf, k_i.to(F32))
+        delta = q_pos[:, None, None, :, None] - kp_i[:, None, None, None, :]
+        valid = (delta >= 0) & (delta < window) & (
+            kp_i[:, None, None, None, :] >= 0)
+        s = torch.where(valid, s, NEG)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        correction = torch.exp(m - m_new)
+        l_new = l * correction + p.sum(-1)
+        acc_new = acc * correction[..., None] + torch.einsum(
+            "bgrqc,bcgd->bgrqd", p, v_i.to(F32))
+        return m_new, l_new, acc_new
+    finally:
+        _CHUNK_SCOPE.depth -= 1
+
+
+def _attention_scan_body(window: int, carry, xs, consts):
+    """`_attention_chunk` as a `scan_chunks` body: carry (m, l, acc), xs
+    one chunk of (k, v, k_pos), consts (qf, q_pos); no per-chunk output."""
+    (m, l, acc), (k_i, v_i, kp_i), (qf, q_pos) = carry, xs, consts
+    return _attention_chunk(m, l, acc, qf, k_i, v_i, q_pos, kp_i,
+                            window), None
+
+
+def _chunked_attention(qf, k, v, q_pos, k_pos, window: int, chunk: int,
+                       dtype):
+    """Chunked online-softmax attention with causal + window masking (the
+    reference's `_flash_attention`).
+
+    qf: [B, G, R, Sq, dh] float32, already scaled by dh^-0.5; k, v:
+    [B, Sk, G, dh] in their stored layout (a decode cache as it is);
+    q_pos [B, Sq], k_pos [B, Sk] int32 absolute positions (-1 = invalid
+    key); attend iff 0 <= qp - kp < window.  The keys are read in chunks
+    of `chunk` positions, the last one padded with position -1, so the
+    only float32 temporaries are one chunk's [B, G, R, Sq, chunk] scores
+    and its slice of k and v.  Without autograd each chunk is a view (a
+    decode cache is read as it is stored).  Under autograd the chunks
+    run rematerialised through `models.scan.scan_chunks`, as the
+    reference's body runs under `jax.checkpoint`: the backward recomputes
+    a chunk's scores from its (m, l, acc) carries, which are all that is
+    kept.  Returns [B, G, R, Sq, dh] in `dtype`.
     """
-    scale = q.shape[-1] ** -0.5
-    s = torch.einsum("bgrqd,bgcd->bgrqc", q.to(F32) * scale, k.to(F32))
-    delta = q_pos[:, None, None, :, None] - k_pos[:, None, None, None, :]
-    valid = (delta >= 0) & (delta < window) & (
-        k_pos[:, None, None, None, :] >= 0)
-    s = torch.where(valid, s, torch.full_like(s, NEG))
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("bgrqc,bgcd->bgrqd", p, v.to(F32)).to(q.dtype)
+    b, g, r, sq, dh = qf.shape
+    sk = k.shape[1]
+    n = -(-sk // chunk)
+    m = torch.full((b, g, r, sq), NEG, dtype=F32, device=qf.device)
+    l = torch.zeros((b, g, r, sq), dtype=F32, device=qf.device)
+    acc = torch.zeros((b, g, r, sq, dh), dtype=F32, device=qf.device)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (qf, k, v)):
+        pad = n * chunk - sk
+        if pad:  # padded keys sit at position -1, masked
+            k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (k, v))
+            k_pos = F.pad(k_pos, (0, pad), value=-1)
+        (m, l, acc), _ = scan_chunks(
+            functools.partial(_attention_scan_body, window), (m, l, acc),
+            (k, v, k_pos), (qf, q_pos), chunk)
+    else:
+        for i in range(n):
+            k_i = k[:, i * chunk:(i + 1) * chunk]
+            v_i = v[:, i * chunk:(i + 1) * chunk]
+            kp_i = k_pos[:, i * chunk:(i + 1) * chunk]
+            pad = chunk - k_i.shape[1]
+            if pad:  # the tail
+                k_i = F.pad(k_i, (0, 0, 0, 0, 0, pad))
+                v_i = F.pad(v_i, (0, 0, 0, 0, 0, pad))
+                kp_i = F.pad(kp_i, (0, pad), value=-1)
+            m, l, acc = _attention_chunk(m, l, acc, qf, k_i, v_i, q_pos,
+                                         kp_i, window)
+    return (acc / l.clamp_min(1e-30)[..., None]).to(dtype)
 
 
 def _local_attention_plan(q, k, v, cache):
@@ -197,10 +275,11 @@ def _local_attention_plan(q, k, v, cache):
     return q.device_mesh, q.placements, rows
 
 
-def _attend(q, k, v, pos, cache, cache_index, window, dtype):
+def _attend(q, k, v, pos, cache, cache_index, window, chunk, dtype):
     """The attention core of `attention`: q [B, S, H, dh] over k, v
-    [B, S, G, dh] at positions pos [B, S], filling or reading the cache
-    -> out [B, S, H, dh] in `dtype`."""
+    [B, S, G, dh] at positions pos [B, S], filling or reading the cache,
+    keys in chunks of `chunk` (`_chunked_attention`) -> out
+    [B, S, H, dh] in `dtype`."""
     b, s, hq, hd = q.shape
     g = k.shape[2]
     qg = q.reshape(b, s, g, hq // g, hd).permute(0, 2, 3, 1, 4)  # [B,G,R,S,dh]
@@ -211,21 +290,14 @@ def _attend(q, k, v, pos, cache, cache_index, window, dtype):
         cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
         cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
         cache["pos"][:, slot] = pos[:, 0]
-        k_c, v_c, pos_c = cache["k"], cache["v"], cache["pos"]
-        # the query scaled and rounded to the model dtype, scores and
-        # values as float32 sums of the dtype's products (the reference's
-        # bf16 einsums with preferred_element_type=F32)
-        scale = hd ** -0.5
-        qf = (qg.to(F32) * scale).to(qg.dtype)  # [B, G, R, 1, dh]
-        scores = torch.einsum("bgrqd,blgd->bgrql", qf.to(F32), k_c.to(F32))
-        delta = pos[:, 0][:, None, None, None, None] \
-            - pos_c[:, None, None, None, :]
-        valid = (delta >= 0) & (delta < window) & (
-            pos_c[:, None, None, None, :] >= 0)
-        scores = torch.where(valid, scores, torch.full_like(scores, NEG))
-        probs = torch.softmax(scores, dim=-1).to(dtype)
-        out = torch.einsum("bgrql,blgd->bgrqd", probs.to(F32),
-                           v_c.to(F32)).to(dtype)
+        # the query scaled and rounded to the model dtype (the
+        # reference's decode); the cache is read in its stored layout a
+        # chunk at a time, each slice's scores and values float32 sums
+        # of the dtype's products, never a float32 copy of the whole cache
+        qf = (qg.to(F32) * hd ** -0.5).to(qg.dtype).to(F32)
+        out = _chunked_attention(qf, cache["k"], cache["v"], pos,
+                                 cache["pos"], window,
+                                 min(chunk, cache["k"].shape[1]), dtype)
     else:
         # ---- train / prefill over the in-context keys ----
         if cache is not None:
@@ -239,9 +311,8 @@ def _attend(q, k, v, pos, cache, cache_index, window, dtype):
                 cache["k"].copy_(torch.roll(k[:, -cache_len:], shift, 1))
                 cache["v"].copy_(torch.roll(v[:, -cache_len:], shift, 1))
                 cache["pos"].copy_(torch.roll(pos[:, -cache_len:], shift, 1))
-        out = _masked_softmax_attention(
-            qg, k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3), pos, pos,
-            window)
+        out = _chunked_attention(qg.to(F32) * hd ** -0.5, k, v, pos, pos,
+                                 window, min(chunk, s), q.dtype)
 
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, hq, hd)
 
@@ -250,12 +321,13 @@ def attention(p: Attention, cfg: ModelConfig, h, positions, inv_freq, *,
               window: int, cache: Optional[dict] = None, cache_index=None):
     """GQA attention sublayer (post-norm input h: [B, S, D]).
 
-    Training / prefill: every in-context key; a given cache is filled
-    (the last cache_len positions, rolled so position p sits at slot
+    Training / prefill: every in-context key, `cfg.attn_chunk` keys at a
+    time (`_chunked_attention`); a given cache is filled (the last
+    cache_len positions, rolled so position p sits at slot
     p % cache_len, when the window is shorter than S).  Decode (S == 1
     with a cache): the new k/v/pos are written at slot
     cache_index % cache_len, in place, then the query attends over the
-    cache in its stored [B, L, G, dh] layout.
+    cache in its stored [B, L, G, dh] layout, a chunk at a time.
 
     Returns (out [B, S, D], the cache or None).
     """
@@ -279,7 +351,8 @@ def attention(p: Attention, cfg: ModelConfig, h, positions, inv_freq, *,
     pos = positions.to(torch.int32).expand(b, s)
     plan = _local_attention_plan(q, k, v, cache)
     if plan is None:
-        out = _attend(q, k, v, pos, cache, cache_index, window, h.dtype)
+        out = _attend(q, k, v, pos, cache, cache_index, window,
+                      cfg.attn_chunk, h.dtype)
     else:
         # every split is of the batch or of whole kv-head groups: each
         # rank attends with its own shards
@@ -290,7 +363,7 @@ def attention(p: Attention, cfg: ModelConfig, h, positions, inv_freq, *,
                       local(as_dtensor(pos, mesh), rows),
                       None if cache is None else {n: t.to_local()
                                                   for n, t in cache.items()},
-                      cache_index, window, h.dtype)
+                      cache_index, window, cfg.attn_chunk, h.dtype)
         out = DTensor.from_local(out, mesh, pl, run_check=False)
 
     out = shard(out, "batch", "seq", "heads", None)

@@ -235,7 +235,11 @@ _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
 
 
 def _save_dots(ctx, op, *args, **kwargs):
-    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+    """Keep a matrix product's output, except an attention chunk's: its
+    scores over every chunk would be the [.., S, S] tensor the chunking
+    avoids (the chunk recomputes them under its own checkpoint)."""
+    return (CheckpointPolicy.MUST_SAVE
+            if op in _DOTS and not L.in_chunk_body()
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 

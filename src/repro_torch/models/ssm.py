@@ -11,10 +11,15 @@ Layout per block (Gu & Dao 2023, mamba_simple):
     y   = C_t . h_t + D * x1
     out = (y * silu(z)) @ out_proj
 
-The selective scan is a plain loop over time with the [B, d_inner, N]
-state in float32: the reference's chunked, rematerialised scan computes
-the same recurrence and exists to bound training memory.  Decode is
-O(1): one state update per token and a conv buffer of k-1 taps.
+The selective scan runs the reference's two levels: the time axis in
+chunks of `_SCAN_CHUNK` steps, each chunk a loop over its steps with the
+[B, d_inner, N] state in float32, the chunks rematerialised
+(`models.scan.scan_chunks`): the forward keeps only the state at
+each chunk boundary and the backward recomputes one chunk at a time, so
+training memory holds S / chunk states, not S.  The tail is padded with
+dt = 0, which leaves the state unchanged, so the last state is exact and
+every chunk does the same work.  Decode is O(1): one state update per
+token and a conv buffer of k-1 taps.
 """
 
 from __future__ import annotations
@@ -27,9 +32,14 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import _matmul, _normal_, _param
+from repro_torch.models.scan import scan_chunks, trip_counter, trips
 from repro_torch.sharding import shard
+from repro_torch.sharding.rules import as_dtensor, is_dtensor, local
 
 F32 = torch.float32
+
+# time-axis chunk of the two-level selective scan (memory/recompute knob)
+_SCAN_CHUNK = 256
 
 
 class Mamba(nn.Module):
@@ -97,19 +107,127 @@ def _causal_conv(x, w, b, conv_state=None):
     conv_state: [B, kc-1, din], the trailing inputs of the previous
     segment (zeros when None).  Returns (y [B, S, din], new_state).
     """
-    bsz, s, din = x.shape
+    s = x.shape[1]
     kc = w.shape[0]
-    if conv_state is None:
-        conv_state = torch.zeros((bsz, kc - 1, din), dtype=x.dtype,
-                                 device=x.device)
-    xp = torch.cat([conv_state.to(x.dtype), x], dim=1)
-    # y[t] = sum_j w[j] * xp[t + j], as shifted adds in float32
-    y = torch.zeros((bsz, s, din), dtype=F32, device=x.device)
-    for j in range(kc):
+    xp = F.pad(x, (0, 0, kc - 1, 0)) if conv_state is None else \
+        torch.cat([conv_state.to(x.dtype), x], dim=1)
+    # y[t] = sum_j w[j] * xp[t + j], as shifted adds in float32 (the
+    # reference's from 0; 0 + t is t)
+    y = xp[:, :s, :].to(F32) * w[0].to(F32)
+    for j in range(1, kc):
         y = y + xp[:, j:j + s, :].to(F32) * w[j].to(F32)
     y = y + b.to(F32)
-    new_state = xp[:, -(kc - 1):, :] if kc > 1 else conv_state
+    new_state = xp[:, s:, :]  # the last kc - 1 inputs
     return y.to(x.dtype), new_state
+
+
+def _scan_steps(carry, seq, consts):
+    """The selective scan over the steps of seq = (dt [B, T, din], B and C
+    [B, T, N], x [B, T, din]) from the state carry = (h [B, din, N],),
+    a = consts[0] [din, N]: ((h after the last step,), y [B, T, din]).
+    The reference's step, h = exp(dt*A) * h + dt * B * x and
+    y = (h * C).sum(-1), with the terms that do not depend on h formed
+    for all T steps at once; the recurrence itself is `_Recurrence`."""
+    (h,), (dt, bmat, cmat, xs), (a,) = carry, seq, consts
+    da = torch.exp(dt[..., None] * a)  # [B, T, din, N]
+    dbx = dt[..., None] * bmat[:, :, None, :] * xs[..., None]
+    hs = _Recurrence.apply(h, da, dbx, trip_counter(dt))
+    y = (hs * cmat[:, :, None, :]).sum(-1)
+    return (hs[:, -1].clone(),), y
+
+
+class _Recurrence(torch.autograd.Function):
+    """hs[:, t] = da[:, t] * h + dbx[:, t], h the previous state (h0 before
+    the first): one multiply-add a step forward, and backward the reverse
+    loop g += dL/dhs[:, t]; dL/dda[:, t] = g * h_prev; dL/ddbx[:, t] = g;
+    g *= da[:, t], so every step does the same work.  `counter` set
+    (`models.scan.trip_counter`: a dry-run's fakes): one step runs,
+    charged T times (`trips`)."""
+
+    @staticmethod
+    def forward(ctx, h0, da, dbx, counter):
+        n = da.shape[1]
+        runs = 1 if counter is not None else n
+        h, hs = h0, []
+        with trips(counter, n):
+            for t in range(runs):
+                h = da[:, t] * h + dbx[:, t]
+                hs.append(h)
+        out = torch.stack(hs * (n // runs), dim=1)
+        ctx.save_for_backward(h0, da, out)
+        ctx.counter = counter
+        return out
+
+    @staticmethod
+    def backward(ctx, g_hs):
+        h0, da, hs = ctx.saved_tensors
+        n = da.shape[1]
+        runs = 1 if ctx.counter is not None else n
+        g = torch.zeros_like(h0)
+        g_da, g_dbx = [], []
+        with trips(ctx.counter, n):
+            for t in reversed(range(n - runs, n)):
+                g = g + g_hs[:, t]
+                g_da.append(g * (hs[:, t - 1] if t else h0))
+                g_dbx.append(g)
+                g = g * da[:, t]
+        reps = n // runs
+        return (g, torch.stack(g_da[::-1] * reps, dim=1),
+                torch.stack(g_dbx[::-1] * reps, dim=1), None)
+
+
+def _selective_scan(dt, bmat, cmat, xs, a, h):
+    """The scan over S = dt.shape[1] steps from the state h: decode (S ==
+    1) one update, else chunks of `_SCAN_CHUNK` through `scan_chunks`,
+    the tail padded with dt = 0 (the state passes through unchanged).
+    Returns (y [B, S, din], the last h)."""
+    s = dt.shape[1]
+    if s == 1:
+        (h,), y = _scan_steps((h,), (dt, bmat, cmat, xs), (a,))
+        return y, h
+    chunk = min(_SCAN_CHUNK, s)
+    pad = (-s) % chunk
+    seq = (dt, bmat, cmat, xs)
+    if pad:
+        seq = tuple(F.pad(t, (0, 0, 0, pad)) for t in seq)
+    (h,), y = scan_chunks(_scan_steps, (h,), seq, (a,), chunk)
+    return y[:, :s], h
+
+
+# each operand's (batch, d_inner) dims for `_on_shards`, None where it has
+# none: [B, S, din], [B, S, N], [B, din, N], [din, N], [kc, din], [din]
+_BSD, _BSN, _BDN, _DN, _KD, _D = (0, 2), (0, None), (0, 1), (None, 0), \
+    (None, 1), (None, 0)
+
+
+def _on_shards(fn, dims, outs, *ts):
+    """fn(*ts), run on the local shards when ts[0] ([B, S, din]) is a
+    DTensor: the conv and the scan are independent across the batch and
+    across d_inner, so each rank runs its own part.  Per mesh dim, ts[0]
+    split along its batch or d_inner dim splits every operand along its
+    own (dims: each one's (batch, d_inner) dims, None where it has none;
+    an operand whole there gets a partial-sum gradient), any other
+    placement is gathered whole; the outputs come back as DTensors laid
+    out by `outs`.  Plain tensors: fn(*ts) as it is."""
+    if not is_dtensor(ts[0]):
+        return fn(*ts)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = ts[0].device_mesh
+    kinds = [0 if q.is_shard(0) else 1 if q.is_shard(2) else None
+             for q in ts[0].placements]
+
+    def layout(d):
+        at = [None if k is None else d[k] for k in kinds]
+        return ([Replicate() if i is None else Shard(i) for i in at],
+                [Shard(i) if i is not None else
+                 Replicate() if k is None else Partial()
+                 for i, k in zip(at, kinds)])
+
+    res = fn(*(None if t is None else local(as_dtensor(t, mesh), *layout(d))
+               for t, d in zip(ts, dims)))
+    return tuple(DTensor.from_local(r, mesh, layout(d)[0], run_check=False)
+                 for r, d in zip(res, outs))
 
 
 def mamba_block(p: Mamba, cfg: ModelConfig, x: torch.Tensor, *,
@@ -123,7 +241,9 @@ def mamba_block(p: Mamba, cfg: ModelConfig, x: torch.Tensor, *,
     x1 = shard(x1, "batch", "seq", "mlp")
 
     conv_state = cache["conv"] if cache is not None else None
-    x1, new_conv = _causal_conv(x1, p.conv_w, p.conv_b, conv_state)
+    x1, new_conv = _on_shards(_causal_conv, (_BSD, _KD, _D, _BSD),
+                              (_BSD, _BSD), x1, p.conv_w, p.conv_b,
+                              conv_state)
     x1 = F.silu(x1.to(F32)).to(x.dtype)
 
     xdbc = _matmul(x1.to(F32), p.x_proj.to(F32))
@@ -135,13 +255,8 @@ def mamba_block(p: Mamba, cfg: ModelConfig, x: torch.Tensor, *,
     h = cache["h"] if cache is not None else torch.zeros(
         (bsz, din, n), dtype=F32, device=x.device)
     xs = x1.to(F32)
-    ys = []
-    for i in range(s):
-        dt_t = dt[:, i]  # [B, din]
-        h = torch.exp(dt_t[:, :, None] * a) * h \
-            + dt_t[:, :, None] * bmat[:, i][:, None, :] * xs[:, i][:, :, None]
-        ys.append((h * cmat[:, i][:, None, :]).sum(-1))  # [B, din]
-    y = torch.stack(ys, dim=1)
+    y, h = _on_shards(_selective_scan, (_BSD, _BSN, _BSN, _BSD, _DN, _BDN),
+                      (_BSD, _BDN), dt, bmat, cmat, xs, a, h)
 
     y = y + p.D.to(F32) * xs
     y = (y * F.silu(z.to(F32))).to(x.dtype)

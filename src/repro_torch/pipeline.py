@@ -626,15 +626,20 @@ class CompiledPipeline:
         """DEPRECATED shim: `InferenceSpec(reduction="argmax")` (with
         `key`, one batch-level silicon draw)."""
         _warn_legacy("predict")
+        return self._predict(x_pm1, key)
+
+    def __call__(self, x_pm1,
+                 key: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Sugar for the deprecated `predict` shim (warns as it does)."""
+        _warn_legacy("predict")
+        return self._predict(x_pm1, key)
+
+    def _predict(self, x_pm1, key: Optional[torch.Generator]):
+        """The body `predict` and `__call__` share."""
         if key is None:
             return self.run(x_pm1, InferenceSpec(reduction="argmax"))
         return self.run(x_pm1, InferenceSpec(noise="batch",
                                              reduction="argmax"), key=key)
-
-    def __call__(self, x_pm1,
-                 key: Optional[torch.Generator] = None) -> torch.Tensor:
-        """Sugar for the deprecated `predict` shim."""
-        return self.predict(x_pm1, key)
 
     def to(self, device) -> "CompiledPipeline":
         """The same pipeline with every operand on `device` (self if it is

@@ -1,6 +1,7 @@
 """Two gloo ranks on the CPU, run by tests/test_torch_sharding.py in a
-subprocess: the port's sharded LM serving, MoE dispatch groups and train
-step against the unsharded port on the same weights, on (data, model)
+subprocess: the port's sharded LM serving (a Mamba model too), MoE
+dispatch groups and train step (a Mamba model too) against the
+unsharded port on the same weights, on (data, model)
 meshes of (1, 2) and (2, 1) (the step also for an MoE model over two
 microbatches), and the train launcher with --ckpt-dir
 (saved, restarted, continued) against an uninterrupted run, counting
@@ -50,7 +51,8 @@ def _serve(mesh) -> dict:
     rules = SERVE_RULES.resolve(mesh)
     out = {}
     gen = torch.Generator().manual_seed(1)
-    for arch in (SERVE_ARCH, "llama3.2-1b+smoke+binary-ffn"):
+    for arch in (SERVE_ARCH, "llama3.2-1b+smoke+binary-ffn",
+                 "falcon-mamba-7b+smoke"):
         cfg = configs.get_config(arch)
         tok = torch.randint(1, cfg.vocab_size, (4, 8), generator=gen)
         nxt = torch.randint(1, cfg.vocab_size, (4, 1), generator=gen)
@@ -159,8 +161,14 @@ def _train(mesh, arch="llama3.2-1b+smoke", microbatches=1,
                                       - float(m0["loss"])),
             f"{prefix}/update_err": err, f"{prefix}/update_max": moved,
             f"{prefix}/lr": tcfg.opt.lr, f"{prefix}/opt_err": err_m,
-            f"{prefix}/placements": str(
-                s1["params"].blocks[0].sub0.attn.wq.placements)}
+            f"{prefix}/placements": str(_first_weight(s1["params"])
+                                        .placements)}
+
+
+def _first_weight(params):
+    """Block 0's first projection: attention's wq, or Mamba's in_proj."""
+    sub = params.blocks[0].sub0
+    return sub.attn.wq if hasattr(sub, "attn") else sub.mamba.in_proj
 
 
 def _moe(mesh, out_dir) -> dict:
@@ -252,6 +260,9 @@ def worker(rank: int, port: int, out_dir: str) -> None:
                          # groups of a data split route as one group does
                          **_train(mesh, "mixtral-8x7b+smoke", 2,
                                   "train_moe_mb2", capacity_factor=8.0),
+                         # the Mamba conv and scan on each rank's shards
+                         **_train(mesh, "falcon-mamba-7b+smoke", 1,
+                                  "train_mamba"),
                          **_bitlinear_unaligned(mesh),
                          **_ckpt(mesh, out_dir)}.items():
                 res[f"{tag}/{k}"] = v

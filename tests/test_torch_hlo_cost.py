@@ -259,15 +259,17 @@ def _port_step(cfg, shape):
 @pytest.mark.parametrize("shape", [SMALL_DECODE, SMALL_PREFILL, SMALL_TRAIN],
                          ids=lambda s: s.kind)
 def test_smoke_step_matmul_flops_equal_reference_dots(shape):
-    """Equal products; in training the reference's flash attention also
-    recomputes its scores QK^T in the backward pass (2 B H S^2 dh a
-    block), where the port's attention keeps its probabilities."""
+    """Equal products; in training both attentions also recompute their
+    scores QK^T in the backward pass (each key chunk rematerialised), and
+    the port's recomputed chunk also takes its product with V (2 B H S^2
+    dh a block), which the reference's compiled backward drops as
+    unused."""
     arch = "llama3.2-1b+smoke"
     cfg = configs.get_config(arch)
     want = _ref_step_dots(jconfigs.get_config(arch), shape)
     got, totals = _port_step(cfg, shape)
     if shape.kind == "train":
-        want -= cfg.blocks * 2 * shape.global_batch * cfg.n_heads \
+        want += cfg.blocks * 2 * shape.global_batch * cfg.n_heads \
             * shape.seq_len ** 2 * cfg.head_dim
     assert got == pytest.approx(want, rel=MATMUL_RTOL)
     assert totals.binary_ops == 0 and totals.collective_count == 0

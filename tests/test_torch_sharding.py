@@ -373,6 +373,25 @@ def test_sharded_moe_train_step_over_microbatches_equals_unsharded(
 
 
 @pytest.mark.parametrize("mesh", ["1x2", "2x1"])
+def test_sharded_mamba_serving_and_train_step_equal_unsharded(two_ranks,
+                                                              mesh):
+    """falcon-mamba-7b+smoke: the causal conv and the selective scan run
+    on each rank's shards (split along the batch or d_inner), prefill and
+    decode logits and one train step equal to the unsharded port's."""
+    res, _, _ = two_ranks
+    arch = f"{mesh}/falcon-mamba-7b+smoke"
+    assert res[f"{arch}/prefill_err"] <= 1e-5
+    assert res[f"{arch}/decode_err"] <= 1e-5
+    key = f"{mesh}/train_mamba"
+    assert "Shard" in res[f"{key}/placements"]
+    assert res[f"{key}/loss_err"] <= 1e-5
+    lr = res[f"{key}/lr"]
+    assert res[f"{key}/update_max"] >= lr / 2
+    assert res[f"{key}/update_err"] <= lr / 30
+    assert res[f"{key}/opt_err"] <= 1e-5
+
+
+@pytest.mark.parametrize("mesh", ["1x2", "2x1"])
 def test_ckpt_dir_over_two_ranks_one_writer_restart_equal(two_ranks, mesh):
     """`launch.train --ckpt-dir` on both ranks: rank 0 alone writes (steps
     2 and 4) and alone holds the gathered leaves of a save, and a run
