@@ -180,11 +180,24 @@ exit 0):
    subprocesses have ended); kernels 1 and 2 launched
    in the decode step through their custom ops and equal to their plain
    versions on the rows it packed.  A `{"dryrun": ...}` line.
-11. A `{"kernels": [...]}` line (launches on the kernel's path, on the
-   silicon, train, LM, long-context, LM-training, mesh and dry-run
-   paths, error, times, sampled-form times, bound, the LM-shape and
-   long-context rows), then, as the last line, `{"ok": true, "device":
-   ...}`.
+11. The four examples (`examples/torch_*.py`: quickstart at --fast,
+   picbnn_serve, lm_train at --preset tiny, ft_demo), each through its
+   `main()` in this process with no device argument, every launch
+   counter set to 0 just before the first.  Kernels 3 and 4 must launch
+   in the quickstart (its MLP and CNN deployments and servers), kernels
+   2 and 1 in picbnn_serve (the CAM head's votes and exact readouts).
+   Checks: the quickstart's noiseless predictions on the card equal the
+   same `Deployment` run on the CPU (MLP and CNN) and its served
+   predictions the direct ones; picbnn_serve's vote and exact streams
+   and pass sweep equal the same computation on the CPU on the same
+   weights; lm_train's 60 losses are finite; ft_demo restarts twice and
+   ends on the failure-free run's parameters.  Each example's wall
+   seconds and launches in an `{"examples": ...}` line.
+12. A `{"kernels": [...]}` line (launches on the kernel's path, on the
+   silicon, train, LM, long-context, LM-training, mesh, dry-run and
+   examples paths, error, times, sampled-form times, bound, the LM-shape
+   and long-context rows), then, as the last line, `{"ok": true,
+   "device": ...}`.
 
 Without CUDA, or without the rest of the repository beside it, the script
 exits non-zero before printing any result.  It imports nothing of JAX.
@@ -2970,6 +2983,119 @@ def dryrun_phase(dev, smi: str, counted, quick: bool) -> dict:
                 peak_rtol=DRY_PEAK_RTOL, phase_s=phase_s, card=smi)
 
 
+# ------------------------------------------------- examples (phase 11)
+# the four examples, in order, and the arguments each is run with (the
+# reference's presets: quickstart --fast, lm_train --preset tiny)
+EXAMPLES = (("torch_quickstart", ["--fast"]), ("torch_picbnn_serve", []),
+            ("torch_lm_train", ["--preset", "tiny"]), ("torch_ft_demo", []))
+
+
+def lm_to_cpu(module, make):
+    """A copy on the CPU of an LM module (`make(device)` builds an empty
+    one of its kind)."""
+    cpu = make("cpu")
+    cpu.load_state_dict({k: v.detach().cpu()
+                         for k, v in module.state_dict().items()})
+    return cpu
+
+
+def examples_phase(dev, smi: str, counted) -> dict:
+    """Phase 11: the four examples (`examples/torch_*.py`) in this
+    process, each through its `main(argv)` with no device argument on the
+    card (`--device` only in a CPU rehearsal), every launch counter set
+    to 0 just before the first; each example's wall seconds and its
+    launches.  Kernels 3 and 4 must launch in the quickstart, kernels 1
+    and 2 in picbnn_serve.  Checks: the quickstart's deployed noiseless
+    predictions (MLP and CNN) equal the same `Deployment` run on the CPU,
+    its served predictions the direct ones; picbnn_serve's vote and exact
+    streams and its pass sweep equal the same computation on the CPU on
+    the same weights; lm_train's 60 losses are finite; ft_demo restarts
+    twice and ends on the failure-free run's parameters."""
+    import importlib
+
+    from repro_torch import configs
+    from repro_torch.models import binary_lm
+    from repro_torch.models import model as M
+    from repro_torch.spec import InferenceSpec
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "examples"))
+    mods = {name: importlib.import_module(name) for name, _ in EXAMPLES}
+    extra = [] if dev.type == "cuda" else ["--device", str(dev)]
+    t_phase = time.perf_counter()
+    for fn in counted:
+        fn.launches = 0
+    outs, runs = {}, {}
+    for name, argv in EXAMPLES:
+        before = {fn.__name__: fn.launches for fn in counted}
+        t0 = time.perf_counter()
+        outs[name] = mods[name].main(argv + extra)
+        sync(dev)
+        runs[name] = dict(
+            wall_s=time.perf_counter() - t0,
+            launches={fn.__name__: fn.launches - before[fn.__name__]
+                      for fn in counted})
+        print(f"  example {name} {' '.join(argv)}: "
+              f"{runs[name]['wall_s']:.1f} s, launches "
+              f"{runs[name]['launches']}")
+    launches = {fn.__name__: fn.launches for fn in counted}
+    on_card = dev.type == "cuda"
+    for name, kernels in (("torch_quickstart", ("fused_mlp_votes",
+                                                "fused_conv_votes")),
+                          ("torch_picbnn_serve", ("cam_vote",
+                                                  "binary_gemm_hd"))):
+        for k in kernels:
+            require(runs[name]["launches"][k] > 0 or not on_card,
+                    f"{k} was not launched in {name}")
+
+    # the quickstart: card == CPU on the same folded weights
+    qs, argmax = outs["torch_quickstart"], InferenceSpec(reduction="argmax")
+    made = qs["made"]
+    mlp_cpu = made["dep"].pipeline("cpu").run(made["vxb"], argmax)
+    require(torch.equal(made["pred"], mlp_cpu.cpu()),
+            "quickstart: MLP predictions on the card != the CPU's")
+    cnn_cpu = made["cnn_dep"].pipeline("cpu").run(made["vx"], argmax)
+    require(torch.equal(made["cnn_pred"], cnn_cpu.cpu()),
+            "quickstart: CNN predictions on the card != the CPU's")
+    require(qs["served_pred0"] == qs["direct_pred0"]
+            and np.array_equal(made["served"], made["pred"].numpy()[:512]),
+            "quickstart: served predictions != direct")
+    require(qs["served_cnn_pred0"] == qs["direct_cnn_pred0"],
+            "quickstart: served CNN prediction != direct")
+    # picbnn_serve: the same computation on the CPU, on the same weights
+    ps = outs["torch_picbnn_serve"]
+    mod = mods["torch_picbnn_serve"]
+    cfg_v = configs.get_config(mod.ARCH + "+cam-head")
+    cfg_e = configs.get_config(mod.ARCH + "+cam-head-exact")
+    params = lm_to_cpu(ps["made"]["params"],
+                       lambda d: M.CausalLM(cfg_v, d))
+    heads = {n: lm_to_cpu(h, lambda d, h=h: binary_lm.CamHead(h.cfg, d))
+             for n, h in ps["made"]["heads"].items()}
+    ps_cpu = mod.run(params, cfg_e, cfg_v, heads, torch.device("cpu"))
+    for stream in ("adc-exact-readout", "picbnn-votes"):
+        require(np.array_equal(ps["made"]["streams"][stream],
+                               ps_cpu["made"]["streams"][stream]),
+                f"picbnn_serve: {stream} stream on the card != the CPU's")
+    require(ps["sweep"] == ps_cpu["sweep"],
+            "picbnn_serve: the pass sweep on the card != the CPU's")
+    lt, ft = outs["torch_lm_train"], outs["torch_ft_demo"]
+    require(lt["steps"] >= 60 and bool(np.isfinite(lt["losses"]).all()),
+            "lm_train: fewer than 60 finite losses")
+    require(ft["params_identical"] is True and ft["restarts"] == 2,
+            f"ft_demo: restarts {ft['restarts']}, params identical "
+            f"{ft['params_identical']}")
+    phase_s = time.perf_counter() - t_phase
+    print(f"  quickstart: card == CPU (MLP and CNN predictions), served == "
+          f"direct; picbnn_serve: streams and sweep card == CPU; lm_train "
+          f"{lt['steps']} finite losses; ft_demo {ft['restarts']} restarts, "
+          f"params identical")
+    print(f"examples phase: {phase_s:.1f} s")
+    numbers = {name: {k: v for k, v in out.items()
+                      if k not in ("made", "losses")}
+               for name, out in outs.items()}
+    return dict(runs=runs, launches=launches, numbers=numbers,
+                phase_s=phase_s, card=smi)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check needs the card",
@@ -3018,7 +3144,7 @@ def main() -> int:
 
 def run(dev: torch.device, b_main: int, batches, card: Card,
         smi: str) -> list:
-    """Phases 2-10 on `dev`; returns the kernels line's entries.
+    """Phases 2-11 on `dev`; returns the kernels line's entries.
 
     Called with the card by `main`; a CPU rehearsal may call it with
     device "cpu" and small batches (every kernel then takes its plain
@@ -3357,6 +3483,10 @@ def run(dev: torch.device, b_main: int, batches, card: Card,
     dry = dryrun_phase(dev, smi, counted, quick=not on_card)
     print(json.dumps({"dryrun": dry}))
 
+    # ---------------------------------------------- the examples (phase 11)
+    ex = examples_phase(dev, smi, counted)
+    print(json.dumps({"examples": ex}))
+
     # ------------------------------------------------------------ summary
     line = []
     for name, r in report.items():
@@ -3390,6 +3520,8 @@ def run(dev: torch.device, b_main: int, batches, card: Card,
             # phase 10(b): the (1, 1) decode step under the dry-run's
             # counter, through the custom ops
             dryrun_launches=dry["launches"][name],
+            # phase 11: the four examples, counted from 0
+            examples_launches=ex["launches"][name],
             sampled_ms=r.get("sampled", {}).get(
                 "hg_cnn" if "conv" in name else "hg", {}).get("ms"),
             sampled=r.get("sampled"),

@@ -34,8 +34,9 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.scan import scan_chunks
 from repro_torch.sharding import shard
-from repro_torch.sharding.rules import (as_dtensor, is_dtensor, keep, local,
-                                        logical_axis_size, sharded_matmul)
+from repro_torch.sharding.rules import (as_dtensor, cut, is_dtensor, keep,
+                                        local, logical_axis_size, shard_range,
+                                        sharded_matmul)
 
 F32 = torch.float32
 NEG = -1e30  # the reference's masked score
@@ -176,21 +177,29 @@ def in_chunk_body() -> bool:
     return _CHUNK_SCOPE.depth > 0
 
 
-def _attention_chunk(m, l, acc, qf, k_i, v_i, q_pos, kp_i, window: int):
+def _attention_chunk(m, l, acc, qf, k_i, v_i, q_pos, kp_i, window: int,
+                     in_place: bool = False):
     """One key chunk of the online softmax: scores of qf [B, G, R, Sq, dh]
     (float32, scaled) against k_i [B, C, G, dh] in float32, masked to
     0 <= qp - kp < window with kp >= 0, folded into the running max m,
     sum l [B, G, R, Sq] and acc [B, G, R, Sq, dh] with the exp(m - m_new)
-    correction.  v_i [B, C, G, dh]; kp_i [B, C] int32."""
+    correction.  v_i [B, C, G, dh]; kp_i [B, C] int32.  `in_place` (the
+    loop without autograd or remat) masks, shifts and exponentiates the
+    scores in place: one score tensor live, not four."""
     _CHUNK_SCOPE.depth += 1
     try:
         s = torch.einsum("bgrqd,bcgd->bgrqc", qf, k_i.to(F32))
         delta = q_pos[:, None, None, :, None] - kp_i[:, None, None, None, :]
         valid = (delta >= 0) & (delta < window) & (
             kp_i[:, None, None, None, :] >= 0)
-        s = torch.where(valid, s, NEG)
-        m_new = torch.maximum(m, s.amax(-1))
-        p = torch.exp(s - m_new[..., None])
+        if in_place:
+            s.masked_fill_(valid.logical_not(), NEG)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = s.sub_(m_new[..., None]).exp_()
+        else:
+            s = torch.where(valid, s, NEG)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
         correction = torch.exp(m - m_new)
         l_new = l * correction + p.sum(-1)
         acc_new = acc * correction[..., None] + torch.einsum(
@@ -206,6 +215,17 @@ def _attention_scan_body(window: int, carry, xs, consts):
     (m, l, acc), (k_i, v_i, kp_i), (qf, q_pos) = carry, xs, consts
     return _attention_chunk(m, l, acc, qf, k_i, v_i, q_pos, kp_i,
                             window), None
+
+
+def _whole(x: torch.Tensor, dims: tuple) -> torch.Tensor:
+    """A DTensor x with none of `dims` split (each mesh dim splitting one
+    replicated); a plain tensor as it is."""
+    if not is_dtensor(x):
+        return x
+    pl = keep(x.placements, lambda q: not (q.is_shard() and q.dim in dims))
+    if pl == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, pl)
 
 
 def _chunked_attention(qf, k, v, q_pos, k_pos, window: int, chunk: int,
@@ -226,6 +246,13 @@ def _chunked_attention(qf, k, v, q_pos, k_pos, window: int, chunk: int,
     a chunk's scores from its (m, l, acc) carries, which are all that is
     kept.  Returns [B, G, R, Sq, dh] in `dtype`.
     """
+    # DTensors here (the ranks cannot attend on their own shards, as over
+    # a split kv sequence): the chunk's einsums fold (b, g) into one batch
+    # dim, through which DTensor cannot carry a split of g (a strided
+    # shard), so the head dims are made whole first; a split key sequence
+    # is gathered once here, not once a chunk by the chunks' slices
+    qf = _whole(qf, (1, 2))
+    k, v, k_pos = _whole(k, (1, 2)), _whole(v, (1, 2)), _whole(k_pos, (1,))
     b, g, r, sq, dh = qf.shape
     sk = k.shape[1]
     n = -(-sk // chunk)
@@ -251,7 +278,7 @@ def _chunked_attention(qf, k, v, q_pos, k_pos, window: int, chunk: int,
                 v_i = F.pad(v_i, (0, 0, 0, 0, 0, pad))
                 kp_i = F.pad(kp_i, (0, pad), value=-1)
             m, l, acc = _attention_chunk(m, l, acc, qf, k_i, v_i, q_pos,
-                                         kp_i, window)
+                                         kp_i, window, in_place=True)
     return (acc / l.clamp_min(1e-30)[..., None]).to(dtype)
 
 
@@ -275,6 +302,25 @@ def _local_attention_plan(q, k, v, cache):
     return q.device_mesh, q.placements, rows
 
 
+def _cache_write(t: torch.Tensor, start: int, x: torch.Tensor) -> None:
+    """t[:, start:start + x.shape[1]] = x, in place, in t's dtype.  On a
+    DTensor t each rank writes the positions of that slice it holds into
+    its local shard (x laid out as t with its dim 1 whole; a plain x is
+    the same on every rank), so a cache split along its sequence keeps
+    what is written."""
+    n = x.shape[1]
+    if not is_dtensor(t):
+        t[:, start:start + n] = x.to(t.dtype)
+        return
+    mesh = t.device_mesh
+    xl = cut(x, mesh, keep(t.placements, lambda q: not q.is_shard(1)))
+    lo, size = shard_range(t, 1)
+    a, b = max(start, lo), min(start + n, lo + size)
+    if a < b:
+        t.to_local()[:, a - lo:b - lo] = xl[:, a - start:b - start].to(
+            t.dtype)
+
+
 def _attend(q, k, v, pos, cache, cache_index, window, chunk, dtype):
     """The attention core of `attention`: q [B, S, H, dh] over k, v
     [B, S, G, dh] at positions pos [B, S], filling or reading the cache,
@@ -287,9 +333,8 @@ def _attend(q, k, v, pos, cache, cache_index, window, chunk, dtype):
     if cache is not None and s == 1:
         # ---- decode: write the new kv into the (rolling) cache ----
         slot = int(cache_index) % cache["k"].shape[1]
-        cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
-        cache["pos"][:, slot] = pos[:, 0]
+        for name, t in (("k", k), ("v", v), ("pos", pos)):
+            _cache_write(cache[name], slot, t)
         # the query scaled and rounded to the model dtype (the
         # reference's decode); the cache is read in its stored layout a
         # chunk at a time, each slice's scores and values float32 sums
@@ -302,15 +347,11 @@ def _attend(q, k, v, pos, cache, cache_index, window, chunk, dtype):
         # ---- train / prefill over the in-context keys ----
         if cache is not None:
             cache_len = cache["k"].shape[1]
-            if cache_len >= s:
-                cache["k"][:, :s] = k.to(cache["k"].dtype)
-                cache["v"][:, :s] = v.to(cache["v"].dtype)
-                cache["pos"][:, :s] = pos
-            else:  # keep the last cache_len positions (rolling window)
-                shift = (s - cache_len) % cache_len
-                cache["k"].copy_(torch.roll(k[:, -cache_len:], shift, 1))
-                cache["v"].copy_(torch.roll(v[:, -cache_len:], shift, 1))
-                cache["pos"].copy_(torch.roll(pos[:, -cache_len:], shift, 1))
+            for name, t in (("k", k), ("v", v), ("pos", pos)):
+                if cache_len < s:  # keep the last cache_len (rolling window)
+                    t = torch.roll(t[:, -cache_len:],
+                                   (s - cache_len) % cache_len, 1)
+                _cache_write(cache[name], 0, t)
         out = _chunked_attention(qg.to(F32) * hd ** -0.5, k, v, pos, pos,
                                  window, min(chunk, s), q.dtype)
 

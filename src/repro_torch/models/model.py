@@ -412,14 +412,34 @@ def _chunk_ce(h, labels, head) -> torch.Tensor:
     if not R.is_dtensor(logits):
         gold = logits.gather(-1, labels[..., None].long())[..., 0]
         return (torch.logsumexp(logits, -1) - gold).sum()
-    # over a vocab split: the gold logit as a masked sum, logsumexp as
-    # max + log-sum-exp of the rest (the max without gradient, as
-    # logsumexp's own)
-    onehot = L.one_hot(labels.long(), logits.shape[-1]).to(F32)
-    gold = (logits * onehot).sum(-1)
+    # over a vocab split: logsumexp as max + log-sum-exp of the rest (the
+    # max without gradient, as logsumexp's own), the gold logit gathered
+    # on each rank's own rows of its vocab shard.  The vocab sum is summed
+    # to the rows' layout before its log (resolved along the batch
+    # instead, its backward would gather the exp across the batch).
     m = logits.detach().amax(-1, keepdim=True)
-    lse = (logits - m).exp().sum(-1).log() + m[..., 0]
-    return (lse - gold).sum()
+    lse = shard((logits - m).exp().sum(-1), "batch", "seq").log() + m[..., 0]
+    return (lse - _gold_logit(logits, labels)).sum()
+
+
+def _gold_logit(logits, labels) -> torch.Tensor:
+    """logits[..., labels] of a DTensor logits [B, S, V] with its labels
+    [B, S] (plain, the same on every rank, or a DTensor): each rank takes
+    the labels of its own rows, gathers those inside its vocab shard from
+    its local logits and zeros the rest, a partial sum over the vocab's
+    mesh dims summed once.  The logits' gradient comes only through
+    that gather."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    mesh, v = logits.device_mesh, logits.ndim - 1
+    rows = [Replicate() if q.is_shard(v) else q for q in logits.placements]
+    start, size = R.shard_range(logits, v)
+    idx, miss = R.masked_ids(R.cut(labels, mesh, rows), start, size)
+    gold = logits.to_local().gather(-1, idx[..., None])[..., 0]
+    out = [Partial() if q.is_shard(v) else q for q in logits.placements]
+    return DTensor.from_local(gold.masked_fill(miss, 0), mesh, out,
+                              run_check=False).redistribute(
+        mesh, R.summed(out))
 
 
 def loss_fn(params: CausalLM, cfg: ModelConfig, batch: dict,
@@ -441,16 +461,13 @@ def loss_fn(params: CausalLM, cfg: ModelConfig, batch: dict,
 # ---------------------------------------------------------------------------
 # Serving: cache init / prefill / decode
 # ---------------------------------------------------------------------------
-def _attn_cache(cfg: ModelConfig, batch: int, max_len: int, window,
-                device) -> dict:
+def _attn_cache_leaves(cfg: ModelConfig, batch: int, max_len: int,
+                       window) -> dict:
+    """{leaf: (shape, dtype, fill)} of an attention sublayer's cache."""
     length = max_len if window is None else min(window, max_len)
     shape = (batch, length, cfg.n_kv_heads, cfg.head_dim)
-    return {
-        "k": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
-        "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
-        "pos": torch.full((batch, length), -1, dtype=torch.int32,
-                          device=device),
-    }
+    return {"k": (shape, cfg.torch_dtype, 0), "v": (shape, cfg.torch_dtype, 0),
+            "pos": ((batch, length), torch.int32, -1)}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -460,26 +477,30 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     the window), mamba sublayers their conv taps and float32 state.
     `device` None means the CUDA card.
     Inside `sharding.use_rules(rules, mesh)` each leaf is a DTensor laid
-    out by `cache_pspecs`."""
+    out by `cache_pspecs`, each rank making only its own shard."""
     pat = cfg.pattern()
     device = resolve_device(device)
-
-    def one_block():
-        return {f"sub{i}": (_attn_cache(cfg, batch, max_len, pat.windows[i],
-                                        device)
-                            if pat.kinds[i] == "attn"
-                            else S.init_mamba_cache(cfg, batch, device=device))
-                for i in range(pat.size)}
-
-    cache = [one_block() for _ in range(cfg.blocks)]
     rules, mesh = R.current_rules(), R.current_mesh()
-    if rules is not None and mesh is not None:
-        specs = cache_pspecs(cfg, rules)
-        cache = [{sub: {k: R.distribute(t, specs[b][sub][k], mesh)
-                        for k, t in leaves.items()}
-                  for sub, leaves in blk.items()}
-                 for b, blk in enumerate(cache)]
-    return cache
+    specs = (cache_pspecs(cfg, rules)
+             if rules is not None and mesh is not None else None)
+
+    def leaf(b, sub, name, shape, dtype, fill):
+        if specs is None:
+            return torch.full(shape, fill, dtype=dtype, device=device)
+        return R.filled(shape, fill, dtype, specs[b][sub][name], mesh,
+                        device)
+
+    def one_block(b):
+        out = {}
+        for i in range(pat.size):
+            leaves = (_attn_cache_leaves(cfg, batch, max_len, pat.windows[i])
+                      if pat.kinds[i] == "attn"
+                      else S.mamba_cache_leaves(cfg, batch))
+            out[f"sub{i}"] = {n: leaf(b, f"sub{i}", n, *spec)
+                              for n, spec in leaves.items()}
+        return out
+
+    return [one_block(b) for b in range(cfg.blocks)]
 
 
 def cache_axes(cfg: ModelConfig) -> list:

@@ -91,14 +91,18 @@ def mamba_param_axes(cfg: ModelConfig) -> dict:
     }
 
 
+def mamba_cache_leaves(cfg: ModelConfig, batch: int, dtype=None) -> dict:
+    """{leaf: (shape, dtype, fill)} of a mamba sublayer's cache."""
+    return {"conv": ((batch, cfg.ssm_conv - 1, cfg.d_inner),
+                     dtype or cfg.torch_dtype, 0),
+            "h": ((batch, cfg.d_inner, cfg.ssm_state), F32, 0)}
+
+
 def init_mamba_cache(cfg: ModelConfig, batch: int, dtype=None,
                      device=None) -> dict:
-    return {
-        "conv": torch.zeros((batch, cfg.ssm_conv - 1, cfg.d_inner),
-                            dtype=dtype or cfg.torch_dtype, device=device),
-        "h": torch.zeros((batch, cfg.d_inner, cfg.ssm_state), dtype=F32,
-                         device=device),
-    }
+    return {k: torch.full(shape, fill, dtype=dt, device=device)
+            for k, (shape, dt, fill) in
+            mamba_cache_leaves(cfg, batch, dtype).items()}
 
 
 def _causal_conv(x, w, b, conv_state=None):

@@ -373,6 +373,26 @@ def place(x: torch.Tensor, mesh, placements):
                               shape=x.shape, stride=x.stride())
 
 
+def filled(shape, value, dtype, spec, mesh, device):
+    """A DTensor of `shape` holding `value` everywhere, laid out by the
+    sanitised `spec`: each rank makes its own shard only (no rank ever
+    holds the whole tensor)."""
+    from torch.distributed.tensor import DTensor
+
+    pl = layout(spec, shape, mesh)
+    loc = list(shape)
+    for i, q in enumerate(pl):
+        if q.is_shard():
+            loc[q.dim] //= mesh.size(i)
+    stride, n = [], 1
+    for d in reversed(shape):
+        stride.insert(0, n)
+        n *= d
+    return DTensor.from_local(
+        torch.full(loc, value, dtype=dtype, device=device), mesh, pl,
+        run_check=False, shape=torch.Size(shape), stride=tuple(stride))
+
+
 def distribute(x: torch.Tensor, spec, mesh):
     """`x` (the same full tensor on every rank) as a DTensor laid out by
     the sanitised `spec`."""
@@ -543,31 +563,69 @@ def summed(placements) -> list:
     return keep(placements, lambda q: not q.is_partial())
 
 
+def shard_range(x, dim: int) -> tuple:
+    """(start, size) of this rank's slice of a DTensor's dim `dim`, split
+    over the mesh dims where x is `Shard(dim)`, major first (the split
+    even, as `sanitize_spec` leaves it)."""
+    mesh = x.device_mesh
+    coord, start, size = mesh.get_coordinate(), 0, x.shape[dim]
+    for i, q in enumerate(x.placements):
+        if q.is_shard(dim):
+            size //= mesh.size(i)
+            start += coord[i] * size
+    return start, size
+
+
+def cut(x: torch.Tensor, mesh, placements) -> torch.Tensor:
+    """This rank's local part of `x` laid out by `placements`: a plain x
+    (the same on every rank) sliced by the rank's mesh coordinate, with
+    no collective; a DTensor redistributed."""
+    if is_dtensor(x):
+        return x.redistribute(mesh, placements).to_local()
+    return place(x, mesh, placements).to_local()
+
+
+def masked_ids(ids: torch.Tensor, start: int, size: int) -> tuple:
+    """(ids - start with those outside [0, size) set to 0, the mask of
+    those): the rows a rank holding rows [start, start + size) looks up,
+    and the ones it must zero."""
+    idx = ids.long() - start
+    miss = (idx < 0) | (idx >= size)
+    return idx.masked_fill(miss, 0), miss
+
+
 def sharded_embedding(tokens: torch.Tensor, table) -> torch.Tensor:
-    """Rows of a DTensor `table` [V, D] at `tokens` (plain, the same on
-    every rank; a DTensor is gathered whole), on the local shard: where
-    V is split each rank looks up the rows it holds and zeros elsewhere,
-    a partial sum summed over those mesh dims at once; where D is split
-    each rank gives its own columns.  Returns a DTensor.  (DTensor's own
-    embedding masks its ids with a boolean index, which a fake CUDA
-    tensor cannot run without a card.)"""
+    """Rows of a DTensor `table` [V, D] at `tokens` [B, ...] (plain, the
+    same on every rank, or a DTensor), on the local shards: each rank
+    looks up only its batch rows (the mesh dims that the active rules'
+    "batch" maps to, where they do not split V) on the rows of V it
+    holds, zeros elsewhere.  The output [B, ..., D] is `Shard(0)` over
+    the batch's mesh dims, a partial sum over V's, summed over those at
+    once, and split along D where the table's D is split and the batch
+    is not.  Where the batch is split the table is gathered along that
+    mesh dim and its gradient comes back as a partial sum.  Returns a
+    DTensor.  (DTensor's own embedding masks its ids with a boolean
+    index, which a fake CUDA tensor cannot run without a card.)"""
     import torch.nn.functional as F
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     mesh = table.device_mesh
-    if is_dtensor(tokens):
-        tokens = tokens.full_tensor()
-    coord, start, rows, out = mesh.get_coordinate(), 0, table.shape[0], []
-    for i, q in enumerate(table.placements):
-        if q.is_shard(0):
-            rows //= mesh.size(i)
-            start += coord[i] * rows
+    batch = layout(logical_to_spec("batch", *[None] * (tokens.ndim - 1)),
+                   tokens.shape, mesh)
+    tok, tab, grad, out = [], [], [], []
+    for q, b in zip(table.placements, batch):
+        if q.is_shard(0):  # V split: this rank's rows, a partial sum
+            tok.append(Replicate()), tab.append(q), grad.append(q)
             out.append(Partial())
+        elif b.is_shard(0):  # batch split: the table whole on this dim
+            tok.append(b), tab.append(Replicate()), grad.append(Partial())
+            out.append(b)
         else:
+            tok.append(Replicate()), tab.append(q), grad.append(q)
             out.append(Shard(tokens.ndim) if q.is_shard(1) else Replicate())
-    ids = tokens.long() - start
-    miss = (ids < 0) | (ids >= rows)
-    y = F.embedding(ids.masked_fill(miss, 0), table.to_local())
+    start, rows = shard_range(table, 0)
+    ids, miss = masked_ids(cut(tokens, mesh, tok), start, rows)
+    y = F.embedding(ids, local(table, tab, grad))
     y = y.masked_fill(miss[..., None], 0)
     return DTensor.from_local(y, mesh, out, run_check=False).redistribute(
         mesh, summed(out))

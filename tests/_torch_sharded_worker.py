@@ -3,7 +3,8 @@ subprocess: the port's sharded LM serving (a Mamba model too), MoE
 dispatch groups and train step (a Mamba model too) against the
 unsharded port on the same weights, on (data, model)
 meshes of (1, 2) and (2, 1) (the step also for an MoE model over two
-microbatches), and the train launcher with --ckpt-dir
+microbatches; the loss's and every parameter's gradients; a decode over
+a sequence-split cache), and the train launcher with --ckpt-dir
 (saved, restarted, continued) against an uninterrupted run, counting
 the checkpoint writes of each rank.  Rank 0 writes the MoE output to
 `<out>/moe_port.npz` and prints one line, "SHARDED-OK <json>", with every
@@ -165,6 +166,75 @@ def _train(mesh, arch="llama3.2-1b+smoke", microbatches=1,
                                         .placements)}
 
 
+def _loss_grads(mesh) -> dict:
+    """llama3.2-1b+smoke's loss and every parameter's gradient under
+    TRAIN_RULES (the vocab-split gold logit and embedding on each rank's
+    rows) against the unsharded port; the embedding's local output."""
+    from repro_torch import configs
+    from repro_torch.data.tokens import DataConfig, synthetic_stream
+    from repro_torch.models import model as M
+    from repro_torch.sharding import TRAIN_RULES, use_rules
+
+    cfg = configs.get_config("llama3.2-1b+smoke")
+    rules = TRAIN_RULES.resolve(mesh)
+    batch = {k: torch.as_tensor(v) for k, v in next(synthetic_stream(
+        DataConfig(batch=4, seq_len=16,
+                   vocab_size=cfg.vocab_size))).items()}
+    p0 = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    p1 = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    M.shard_params(p1, mesh, rules)
+    loss0, _ = M.loss_fn(p0, cfg, batch)
+    g0 = dict(zip([n for n, _ in p0.named_parameters()],
+                  torch.autograd.grad(loss0, list(p0.parameters()))))
+    with use_rules(rules, mesh):
+        emb = M._embedding(p1, batch["tokens"])
+        loss1, _ = M.loss_fn(p1, cfg, batch)
+        names = [n for n, _ in p1.named_parameters()]
+        with M._sharded(p1):
+            g1 = torch.autograd.grad(loss1, list(p1.parameters()))
+    grad_err = max(float((_full(g) - g0[n]).abs().max())
+                   for n, g in zip(names, g1))
+    return {"loss_grads/loss_err": abs(float(_full(loss1)) - float(loss0)),
+            "loss_grads/grad_err": grad_err,
+            "loss_grads/grad_max": max(float(g.abs().max())
+                                       for g in g0.values()),
+            "loss_grads/embed_local": list(emb.to_local().shape),
+            "loss_grads/embed_placements": str(emb.placements),
+            "loss_grads/vocab_placements": str(p1.embed.placements)}
+
+
+def _seqcache(mesh) -> dict:
+    """stablelm-3b+smoke under SERVE_SEQCACHE_RULES (the cache's sequence
+    split over 'model'): prefill and three decode steps against the
+    unsharded port."""
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    from repro_torch.sharding import SERVE_SEQCACHE_RULES, use_rules
+
+    cfg = configs.get_config("stablelm-3b+smoke")
+    rules = SERVE_SEQCACHE_RULES.resolve(mesh)
+    gen = torch.Generator().manual_seed(2)
+    tok = torch.randint(1, cfg.vocab_size, (4, 8), generator=gen)
+    nxt = torch.randint(1, cfg.vocab_size, (3, 4, 1), generator=gen)
+    p0 = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    p1 = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    M.shard_params(p1, mesh, rules)
+    with torch.no_grad():
+        lg0, c0 = M.prefill(p0, cfg, tokens=tok, max_len=12)
+        dec0 = [M.decode(p0, cfg, c0, nxt[t], 8 + t)[0] for t in range(3)]
+        with use_rules(rules, mesh):
+            lg1, c1 = M.prefill(p1, cfg, tokens=tok, max_len=12)
+            dec1 = [_full(M.decode(p1, cfg, c1, nxt[t], 8 + t)[0])
+                    for t in range(3)]
+            k1 = c1[0]["sub0"]["k"]
+    return {"seqcache/prefill_err": float((_full(lg1) - lg0).abs().max()),
+            "seqcache/decode_err": max(float((a - b).abs().max())
+                                       for a, b in zip(dec1, dec0)),
+            "seqcache/cache_err": float((_full(k1) - c0[0]["sub0"]["k"])
+                                        .abs().max()),
+            "seqcache/cache_placements": str(k1.placements)}
+
+
 def _first_weight(params):
     """Block 0's first projection: attention's wq, or Mamba's in_proj."""
     sub = params.blocks[0].sub0
@@ -264,6 +334,7 @@ def worker(rank: int, port: int, out_dir: str) -> None:
                          **_train(mesh, "falcon-mamba-7b+smoke", 1,
                                   "train_mamba"),
                          **_bitlinear_unaligned(mesh),
+                         **_loss_grads(mesh), **_seqcache(mesh),
                          **_ckpt(mesh, out_dir)}.items():
                 res[f"{tag}/{k}"] = v
             if shape == (2, 1):

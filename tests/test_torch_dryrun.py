@@ -27,7 +27,7 @@ from repro.launch import specs as jspecs
 from repro.models import model as jM
 from repro.sharding import rules as jR
 from repro_torch import configs
-from repro_torch.configs.base import SHAPES
+from repro_torch.configs.base import SHAPES, ShapeConfig
 from repro_torch.launch import dryrun, roofline, specs
 from repro_torch.sharding import TRAIN_RULES
 from repro_torch.train import TrainConfig
@@ -272,3 +272,99 @@ def test_full_size_decode_cell_on_fake_pod(tmp_path):
     # collectives
     assert w["device_hbm_bytes"] < 1.1 * mem["argument_bytes_per_device"]
     assert rec["roofline"]["bottleneck"] == "collective"
+
+
+# ---------------------------------------------------------------------------
+# the repairs of the sharded loss, embedding and seqcache decode, on a
+# fake 2 x 2 group at smoke size
+# ---------------------------------------------------------------------------
+SMOKE_TRAIN = ShapeConfig("train_4k", "train", 64, 8)
+SMOKE_DECODE = ShapeConfig("decode_32k", "decode", 64, 4)
+
+
+@pytest.fixture
+def fake_2x2():
+    with dryrun.fake_group(4):
+        yield dryrun.fake_mesh((2, 2), ("data", "model"))
+
+
+def _one_hot_gold(logits, labels):
+    """The gold logit as the port computed it before: a plain one-hot of
+    the whole batch's labels over the whole vocabulary, a masked sum."""
+    from repro_torch.models import layers as L
+
+    onehot = L.one_hot(labels.long(), logits.shape[-1]).to(torch.float32)
+    return (logits * onehot).sum(-1)
+
+
+def test_vocab_split_train_trace_holds_no_whole_one_hot(fake_2x2,
+                                                        monkeypatch):
+    """llama3.2-1b+smoke (vocab widened to 16,384 so the loss dominates)
+    train step on a fake 2 x 2 mesh, vocab split over 'model', batch over
+    'data': no tensor of B * chunk * V elements is made (the one-hot of
+    the whole batch over the whole vocabulary), the embedding's output a
+    device is [B/dp, S, D], and the counted peak falls by at least that
+    one-hot's bytes (int64, as `F.one_hot` makes it) against the same
+    trace with the one-hot gold logit, and below the trace with the vocab
+    unsplit."""
+    import dataclasses
+
+    from repro_torch.models import model as tM
+    from repro_torch.sharding import TRAIN_RULES
+
+    cfg = dataclasses.replace(configs.get_config("llama3.2-1b+smoke"),
+                              vocab_size=16384)
+    b, s, v, d = SMOKE_TRAIN.global_batch, SMOKE_TRAIN.seq_len, 16384, 64
+    tr = dryrun.lower_cell(cfg, SMOKE_TRAIN, fake_2x2, record=True)
+    whole = b * s * v
+    assert not [o for o in tr.ops for shape in o["out"]
+                if math.prod(shape) >= whole], "a whole-batch one-hot"
+    emb = [o["out"][0] for o in tr.ops if o["op"] == "aten.embedding"]
+    assert emb and all(shape == [b // 2, s, d] for shape in emb), emb
+
+    monkeypatch.setattr(tM, "_gold_logit", _one_hot_gold)
+    old = dryrun.lower_cell(cfg, SMOKE_TRAIN, fake_2x2)
+    monkeypatch.undo()
+    assert tr.memory["temp_bytes_per_device"] <= \
+        old.memory["temp_bytes_per_device"] - 8 * whole
+    unsplit = dataclasses.replace(TRAIN_RULES, rules={
+        **TRAIN_RULES.rules, "vocab": None, "p_vocab": None,
+        "p_embed_v": None})
+    monkeypatch.setattr(dryrun, "rules_for", lambda shape, variant: unsplit)
+    whole_v = dryrun.lower_cell(cfg, SMOKE_TRAIN, fake_2x2)
+    assert tr.memory["temp_bytes_per_device"] < \
+        whole_v.memory["temp_bytes_per_device"]
+
+
+def test_seqcache_decode_traces_on_a_fake_mesh(fake_2x2):
+    """stablelm-3b+smoke decode under SERVE_SEQCACHE_RULES on a fake 2 x 2
+    mesh (the cache's sequence split over 'model', the query's heads
+    too): it traces (it failed in DTensor's strided-shard propagation),
+    and the cache stays split along its sequence."""
+    cfg = configs.get_config("stablelm-3b+smoke")
+    tr = dryrun.lower_cell(cfg, SMOKE_DECODE, fake_2x2, variant="seqcache")
+    assert tr.totals.flops > 0
+    assert tr.memory["alias_bytes_per_device"] > 0  # written in place
+
+
+def test_sharded_init_cache_makes_only_local_shards(fake_2x2):
+    """`init_cache` inside the rules: each leaf a DTensor laid out by
+    `cache_pspecs`, and the storage it makes a device (the counter's
+    peak) exactly its local shards' bytes (it made every block's whole
+    cache on every rank, the prefill_32k cells' peak)."""
+    from repro_torch.launch import hlo_cost
+    from repro_torch.models import model as tM
+    from repro_torch.sharding import SERVE_RULES, use_rules
+
+    cfg = configs.get_config("stablelm-3b+smoke")
+    rules = SERVE_RULES.resolve(fake_2x2)
+    with FakeTensorMode(), use_rules(rules, fake_2x2), \
+            hlo_cost.CostCounter() as counter:
+        cache = tM.init_cache(cfg, 4, 128, specs.fake_device())
+    leaves = [t for blk in cache for sub in blk.values() for t in
+              sub.values()]
+    local = sum(t.to_local().untyped_storage().nbytes() for t in leaves)
+    whole = sum(t.numel() * t.element_size() for t in leaves)
+    assert counter.peak_bytes == local < whole
+    k = cache[0]["sub0"]["k"]
+    assert tuple(k.to_local().shape) == (2, 128, 2, 16)  # batch, kv heads

@@ -1,7 +1,7 @@
 """The port stands alone: importing every `repro_torch` module pulls in
 neither `jax` nor any module of the JAX package, and its entry points
-(compiling, serving, training) default to the CUDA card (raising when
-there is none)."""
+(compiling, serving, training, the four `examples/torch_*.py`) default
+to the CUDA card (raising when there is none)."""
 
 import os
 import subprocess
@@ -169,3 +169,60 @@ def test_package_exports_equal_reference():
         assert inspect.ismodule(getattr(repro.kernels, name))
         assert getattr(repro_torch.kernels, name).__name__ == \
             f"repro_torch.kernels.{name}"
+
+
+EXAMPLES = SRC.parent / "examples"
+TORCH_EXAMPLES = ("torch_quickstart", "torch_picbnn_serve", "torch_lm_train",
+                  "torch_ft_demo")
+
+
+@pytest.mark.parametrize("name", TORCH_EXAMPLES)
+def test_torch_example_imports_neither_jax_nor_repro(name):
+    """Every import statement of the example, at any depth (the ones
+    inside `main` too), names neither `jax` nor the JAX package."""
+    import ast
+
+    tree = ast.parse((EXAMPLES / f"{name}.py").read_text())
+    mods = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            mods.append(node.module or "")
+    bad = [m for m in mods if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, bad
+    assert any(m.startswith("repro_torch") for m in mods)
+
+
+_EXAMPLES_PROBE = textwrap.dedent("""
+    import importlib, sys
+    import torch
+    sys.path.insert(0, sys.argv[1])
+    for name in sys.argv[2:]:
+        mod = importlib.import_module(name)
+        if not torch.cuda.is_available():
+            try:
+                mod.main([])
+            except RuntimeError as e:
+                assert "CUDA" in str(e), (name, e)
+            else:
+                raise AssertionError(f"{name} ran without CUDA")
+    bad = sorted(m for m in sys.modules
+                 if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                 or m == "repro" or m.startswith("repro."))
+    assert not bad, bad
+    print("EXAMPLES ISOLATED")
+""")
+
+
+def test_torch_examples_load_no_jax_and_refuse_the_cpu_unasked():
+    """Importing the four examples pulls in no jax/repro, and each `main`
+    without --device runs on the card: with no card it raises rather
+    than falling back to the CPU."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(SRC)
+    out = subprocess.run([sys.executable, "-c", _EXAMPLES_PROBE,
+                          str(EXAMPLES), *TORCH_EXAMPLES], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "EXAMPLES ISOLATED" in out.stdout

@@ -8,7 +8,9 @@ subprocess (meshes (1, 2) and (2, 1)): sharded serving (logits to 1e-5,
 CAM votes and Engine tokens equal, no float ±1 fallback), a sharded
 train step to 1e-5, and the MoE's dispatch groups (G = 2) to 1e-5 of the
 reference's `moe`; the train launcher's --ckpt-dir over both ranks (one
-writer, a restart equal to an uninterrupted run).  The reference's own
+writer, a restart equal to an uninterrupted run); the vocab-split loss
+and embedding's gradients, and a decode over a sequence-split cache
+(SERVE_SEQCACHE_RULES), equal to the unsharded port's.  The reference's own
 mesh paths fail under the installed JAX, so the sharded port is held
 against the unsharded port where the reference cannot run."""
 
@@ -421,3 +423,38 @@ def test_moe_dispatch_groups_equal_reference(two_ranks, monkeypatch):
     monkeypatch.setattr(jR, "logical_axis_size", lambda logical: 1)
     one = np.asarray(jL.moe(p, cfg, jnp.asarray(moe_in["h"])))
     assert np.abs(one - want).max() > 1e-3
+
+
+@pytest.mark.parametrize("mesh", ["1x2", "2x1"])
+def test_sharded_loss_and_embedding_grads_equal_unsharded(two_ranks, mesh):
+    """llama3.2-1b+smoke under TRAIN_RULES: the loss and every parameter's
+    gradient with the gold logit gathered on each rank's own rows of its
+    vocab shard, and the embedding looked up on each rank's own batch
+    rows, equal the unsharded port's; the embedding's local output is
+    [B/dp, S, D] (the batch's rows are not gathered)."""
+    res, _, _ = two_ranks
+    key = f"{mesh}/loss_grads"
+    assert res[f"{key}/loss_err"] <= 1e-5
+    assert res[f"{key}/grad_max"] > 1e-2
+    assert res[f"{key}/grad_err"] <= 1e-5
+    dp = int(mesh[0])
+    assert res[f"{key}/embed_local"] == [4 // dp, 16, 64]
+    if mesh == "1x2":  # the vocab rows split over 'model'
+        assert "Shard(dim=0)" in res[f"{key}/vocab_placements"]
+    else:  # the batch split over 'data'
+        assert res[f"{key}/embed_placements"].startswith("(Shard(dim=0)")
+
+
+@pytest.mark.parametrize("mesh", ["1x2", "2x1"])
+def test_seqcache_decode_equals_unsharded(two_ranks, mesh):
+    """stablelm-3b+smoke under SERVE_SEQCACHE_RULES (the cache's sequence
+    split over 'model'): prefill and three decode steps equal the
+    unsharded port's, and the cache written on each rank's own shard of
+    the sequence equals the unsharded cache."""
+    res, _, _ = two_ranks
+    key = f"{mesh}/seqcache"
+    assert res[f"{key}/prefill_err"] <= 1e-5
+    assert res[f"{key}/decode_err"] <= 1e-5
+    assert res[f"{key}/cache_err"] == 0.0
+    if mesh == "1x2":
+        assert "Shard(dim=1)" in res[f"{key}/cache_placements"]
