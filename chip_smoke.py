@@ -186,17 +186,20 @@ exit 0):
    counter set to 0 just before the first.  Kernels 3 and 4 must launch
    in the quickstart (its MLP and CNN deployments and servers), kernels
    2 and 1 in picbnn_serve (the CAM head's votes and exact readouts).
-   Checks: the quickstart's noiseless predictions on the card equal the
-   same `Deployment` run on the CPU (MLP and CNN) and its served
-   predictions the direct ones; picbnn_serve's vote and exact streams
+   Every kernel call of the phase is caught: each kernel called at least
+   as often as it launched, and on the operands of its first call of
+   each form equal to its plain version, timed beside its bound.
+   Checks: the quickstart's noiseless votes and predictions on the card
+   equal the same `Deployment` run on the CPU (MLP and CNN) and its
+   served predictions the direct ones; picbnn_serve's vote and exact streams
    and pass sweep equal the same computation on the CPU on the same
    weights; lm_train's 60 losses are finite; ft_demo restarts twice and
    ends on the failure-free run's parameters.  Each example's wall
    seconds and launches in an `{"examples": ...}` line.
 12. A `{"kernels": [...]}` line (launches on the kernel's path, on the
    silicon, train, LM, long-context, LM-training, mesh, dry-run and
-   examples paths, error, times, sampled-form times, bound, the LM-shape
-   and long-context rows), then, as the last line, `{"ok": true,
+   examples paths, error, times, sampled-form times, bound, the LM-shape,
+   long-context and examples rows), then, as the last line, `{"ok": true,
    "device": ...}`.
 
 Without CUDA, or without the rest of the repository beside it, the script
@@ -449,6 +452,18 @@ def conv_work(pipe, b: int, p: int, stage: bool, kw_q: int = 0):
     if stage:
         nbytes += 4 * b * kw_q
         return b * popc, b * (2 * popc + alu), nbytes, b * macs, b * alu_tc
+    t = tail_work(pipe, b, p)
+    return (b * popc + t[0], b * (2 * popc + alu) + t[1], nbytes + t[2],
+            b * macs + t[3], b * alu_tc + t[4])
+
+
+def tail_work(pipe, b: int, p: int):
+    """The work of kernel 3's function, the FC layers and the head's vote
+    (kernel 4's tail), on b packed queries, as `conv_work` gives it,
+    the queries' own bytes left out: an FC output and a head distance
+    cost a popcount a word (their bits on a tensor-core route), and 2
+    ALU operations (`conv_work`), a threshold 2 a vote."""
+    popc = alu = macs = alu_tc = nbytes = 0
     head = pipe.head.cam.rows_packed
     for w, n in zip(pipe.layer_ws, pipe.layer_n_bits):
         popc += w.numel()
@@ -604,14 +619,8 @@ def sampled_form_rows(pipe, x, gen, card, mid: str, report: dict) -> None:
         kw = dict(bias_cells=head.bias_cells, thr_samples=samples)
         name, fn, plain = ("fused_mlp_votes", fused_mlp.fused_mlp_votes,
                            fused_mlp.fused_mlp_votes_plain)
-        w1, head_rows = pipe.layer_ws[0], head.cam.rows_packed
-        kw0, n1 = xp.shape[1], pipe.layer_n_bits[0]
-        pairs = b * (w1.shape[0] * kw0 + n_cls * head_rows.shape[1])
-        beside = 2 * b * w1.shape[0] + 2 * b * n_cls * p
-        work = [pairs, 2 * pairs + beside,
-                4 * (b * kw0 + w1.numel() + w1.shape[0] + head_rows.numel()
-                     + p + b * n_cls),
-                b * (w1.shape[0] * n1 + n_cls * head.cam.n_bits), beside]
+        work = list(tail_work(pipe, b, p))
+        work[2] += 4 * xp.numel()
     work[2] += 4 * samples.numel()  # the [B, C, P] operand, read once
     got = fn(*args, **kw)
     want = plain(*args, **kw)
@@ -1719,27 +1728,62 @@ LONG_ARCH = "llama3.2-1b+binary-ffn+cam-head"
 LONG_S, LONG_DECODE, LONG_CHECK_S = 32768, 4, 2048
 
 
+def operand_key(name: str, args, kw) -> tuple:
+    """(kernel name, the shape and type of each tensor operand, a
+    sequence of tensors as the tuple of its shapes, then each tensor
+    keyword's name and shape): one key for each form of a call."""
+    def of(a):
+        if torch.is_tensor(a):
+            return tuple(a.shape), str(a.dtype)
+        if isinstance(a, (list, tuple)) and all(map(torch.is_tensor, a)):
+            return tuple(tuple(t.shape) for t in a)
+        return None
+    return (name, *(of(a) for a in args if of(a) is not None),
+            *((k, tuple(v.shape)) for k, v in sorted(kw.items())
+              if torch.is_tensor(v)))
+
+
 @contextlib.contextmanager
-def first_operands(seen: dict):
-    """`kernels.ops`' kernel 1 and 2 wrappers keeping, in seen, the
-    operands of their first call of each operand shape, keyed (kernel
-    name, shapes), and calling the wrapper as before."""
-    from repro_torch.kernels import ops
+def first_operands(seen: dict, calls: dict | None = None):
+    """The kernels' wrappers keeping, in seen, the operands (args, kwargs)
+    of their first call of each form (`operand_key`), and calling the
+    wrapper as before; `calls` counts each kernel's calls.  Kernels 1
+    and 2 are caught at `kernels.ops`, where the port calls them, kernels
+    3 and 4 and 4's stage entry in their own modules, where their bodies
+    count a launch through the module's name, which then names the
+    catching function: each call hands that count on to the wrapper.
+    One call at a time (a server's thread launches beside the caller's)."""
+    import threading
 
-    saved = ops.binary_gemm_hd, ops.cam_vote
+    from repro_torch.kernels import fused_conv, fused_mlp, ops
 
-    def keep(fn):
+    sites = [(ops, "binary_gemm_hd"), (ops, "cam_vote"),
+             (fused_mlp, "fused_mlp_votes"), (fused_conv, "fused_conv_votes"),
+             (fused_conv, "conv_stage_packed")]
+    saved = [getattr(mod, name) for mod, name in sites]
+    calls = {} if calls is None else calls
+    lock = threading.RLock()
+
+    def keep(name, fn):
         def call(*args, **kw):
-            key = (fn.__name__, *(tuple(a.shape) for a in args))
-            seen.setdefault(key, args)
-            return fn(*args, **kw)
+            with lock:
+                seen.setdefault(operand_key(name, args, kw), (args, kw))
+                calls[name] = calls.get(name, 0) + 1
+                call.launches = 0
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    if call.launches:
+                        fn.launches += call.launches
         return call
 
-    ops.binary_gemm_hd, ops.cam_vote = keep(saved[0]), keep(saved[1])
+    for (mod, name), fn in zip(sites, saved):
+        setattr(mod, name, keep(name, fn))
     try:
         yield
     finally:
-        ops.binary_gemm_hd, ops.cam_vote = saved
+        for (mod, name), fn in zip(sites, saved):
+            setattr(mod, name, fn)
 
 
 def lm_long_phase(dev, smi: str, card, counted, quick: bool) -> dict:
@@ -1836,10 +1880,11 @@ def lm_long_phase(dev, smi: str, card, counted, quick: bool) -> dict:
     del cache, logits, votes
     with torch.no_grad():
         k1 = [gemm_case(f"BitLinear long M={a[0].shape[0]}", *a)
-              for (name, *_), a in seen.items() if name == "binary_gemm_hd"]
+              for (name, *_), (a, _) in seen.items()
+              if name == "binary_gemm_hd"]
         k2 = [vote_case(f"CAM head long B={a[0].shape[0]}", *a)
-              for (name, *_), a in seen.items() if name == "cam_vote"]
-        require(any(a[0].shape[0] == s for (name, *_), a in seen.items()
+              for (name, *_), (a, _) in seen.items() if name == "cam_vote"]
+        require(any(a[0].shape[0] == s for (name, *_), (a, _) in seen.items()
                     if name == "binary_gemm_hd") and k2,
                 f"long context: no operands captured: {list(seen)}")
         rows = {"binary_gemm_hd": lm_kernel_rows(card, "binary_gemm_hd", k1),
@@ -2999,18 +3044,130 @@ def lm_to_cpu(module, make):
     return cpu
 
 
-def examples_phase(dev, smi: str, counted) -> dict:
+def plain_of(name: str):
+    """The plain version of a kernel wrapper caught by `first_operands`,
+    taking the wrapper's arguments."""
+    from repro_torch.kernels import binary_gemm, cam_search, fused_conv, \
+        fused_mlp
+
+    def stage_plain(x, ws, cs, metas, *, bias_cells=0, kw_q=None):
+        bias = fused_conv.bias_drive_words(bias_cells) if bias_cells else None
+        return fused_conv.conv_stage_packed_plain(
+            x, ws, cs, metas, bias,
+            fused_conv._query_width(metas, bias_cells, kw_q))
+
+    return {"binary_gemm_hd": binary_gemm.binary_gemm_hd_plain,
+            "cam_vote": cam_search.cam_vote_plain,
+            "fused_mlp_votes": fused_mlp.fused_mlp_votes_plain,
+            "fused_conv_votes": fused_conv.fused_conv_votes_plain,
+            "conv_stage_packed": stage_plain}[name]
+
+
+def call_work(name: str, args, kw):
+    """The work of one caught call of kernel 2, 3 or 4 (or 4's stage
+    entry) as `Card.bound_ms` takes it, from its operands alone:
+    `conv_work` / `tail_work` on a stand-in of the pipeline that made
+    the call (the head's bits: the last layer's outputs and the bias
+    cells; a query's words, 32 bits each, where no layer comes before
+    the head), the [B, C, P] sampled thresholds read once."""
+    from types import SimpleNamespace as NS
+
+    from repro_torch.kernels import fused_conv
+
+    def pipe(layer_ws, n_bits, head, q_bits, conv=None):
+        bias = kw.get("bias_cells", 0)
+        bits = (layer_ws[-1].shape[0] if layer_ws else q_bits) + bias
+        return NS(conv=conv, layer_ws=layer_ws, layer_n_bits=n_bits,
+                  head=NS(cam=NS(rows_packed=head, n_bits=bits)))
+
+    x = args[0]
+    if name in ("fused_conv_votes", "conv_stage_packed"):
+        ws, metas = args[1], args[3]
+        conv = NS(side=x.shape[1], metas=metas, ws=ws)
+        if name == "conv_stage_packed":
+            kw_q = fused_conv._query_width(metas, kw.get("bias_cells", 0),
+                                           kw.get("kw_q"))
+            return conv_work(NS(conv=conv), x.shape[0], 0, True, kw_q)
+        layer_ws, _, n_bits, head, thr = args[4:9]
+        flat = metas[-1].out_side ** 2 * metas[-1].c_out
+        work = list(conv_work(pipe(layer_ws, n_bits, head, flat, conv),
+                              x.shape[0], thr.shape[0], False))
+    else:
+        layer_ws, n_bits, head, thr = ((), (), *args[1:3]) \
+            if name == "cam_vote" else (args[1], args[3], *args[4:6])
+        work = list(tail_work(pipe(layer_ws, n_bits, head, 32 * x.shape[1]),
+                              x.shape[0], thr.shape[0]))
+        work[2] += 4 * x.numel()
+    if kw.get("thr_samples") is not None:
+        work[2] += 4 * kw["thr_samples"].numel()
+    return work
+
+
+def caught_rows(card, seen: dict, label: str) -> dict:
+    """Every form of kernel call caught by `first_operands`, on the
+    operands of its first call, held against its plain version
+    (torch.equal) and timed beside its bound: kernels 1 and 2 by
+    `gemm_case` / `vote_case` (with their library call, `lm_kernel_rows`),
+    the rest (kernel 2 with sampled thresholds, 3, 4, 4's stage entry)
+    with none.  Returns {kernel: [row, ...]}."""
+    from repro_torch.kernels import fused_conv, fused_mlp, ops
+
+    wrappers = {"binary_gemm_hd": ops.binary_gemm_hd,
+                "cam_vote": ops.cam_vote,
+                "fused_mlp_votes": fused_mlp.fused_mlp_votes,
+                "fused_conv_votes": fused_conv.fused_conv_votes,
+                "conv_stage_packed": fused_conv.conv_stage_packed}
+    rows: dict = {}
+    with torch.no_grad():
+        for (name, *_), (args, kw) in seen.items():
+            if name == "binary_gemm_hd":
+                rows.setdefault(name, []).extend(lm_kernel_rows(
+                    card, name, [gemm_case(label, *args)]))
+                continue
+            if name == "cam_vote" and kw.get("thr_samples") is None:
+                rows.setdefault(name, []).extend(lm_kernel_rows(
+                    card, name, [vote_case(label, *args)]))
+                continue
+            fn, plain = wrappers[name], plain_of(name)
+            got, want = fn(*args, **kw), plain(*args, **kw)
+            require(torch.equal(got, want),
+                    f"{label} {name} {operand_key(name, args, kw)[1:]}: "
+                    "kernel != plain")
+            row = dict(shape=f"{label} {name} x{list(args[0].shape)}"
+                       + (" sampled" if kw.get("thr_samples") is not None
+                          else ""),
+                       ms=device_ms(lambda: fn(*args, **kw), iters=20),
+                       call_ms=time_ms(lambda: fn(*args, **kw), 20),
+                       plain_ms=time_ms(lambda: plain(*args, **kw), 3),
+                       **bound_fields(card, *call_work(name, args, kw)),
+                       library_ms=None,
+                       max_abs_err=int((got - want).abs().max())
+                       if got.numel() else 0)
+            rows.setdefault(name, []).append(row)
+            print(f"  {name} {row['shape']}: == plain; kernel {row['ms']} "
+                  f"ms (call {row['call_ms']:.4f} ms), plain "
+                  f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} "
+                  f"ms ({row['bound_route']})")
+    return rows
+
+
+def examples_phase(dev, smi: str, card, counted) -> dict:
     """Phase 11: the four examples (`examples/torch_*.py`) in this
     process, each through its `main(argv)` with no device argument on the
     card (`--device` only in a CPU rehearsal), every launch counter set
     to 0 just before the first; each example's wall seconds and its
     launches.  Kernels 3 and 4 must launch in the quickstart, kernels 1
-    and 2 in picbnn_serve.  Checks: the quickstart's deployed noiseless
-    predictions (MLP and CNN) equal the same `Deployment` run on the CPU,
-    its served predictions the direct ones; picbnn_serve's vote and exact
-    streams and its pass sweep equal the same computation on the CPU on
-    the same weights; lm_train's 60 losses are finite; ft_demo restarts
-    twice and ends on the failure-free run's parameters."""
+    and 2 in picbnn_serve.  Every kernel call is caught
+    (`first_operands`), and each kernel must have been called at least
+    as often as it launched (no launch by another route); on the
+    operands of its first call of each form each kernel equals its plain
+    version (`caught_rows`, which times it beside its bound).  Checks:
+    the quickstart's deployed noiseless votes and predictions (MLP and
+    CNN) equal the same `Deployment` run on the CPU, its served
+    predictions the direct ones; picbnn_serve's vote and exact streams
+    and its pass sweep equal the same computation on the CPU on the same
+    weights; lm_train's 60 losses are finite; ft_demo restarts twice and
+    ends on the failure-free run's parameters."""
     import importlib
 
     from repro_torch import configs
@@ -3024,21 +3181,31 @@ def examples_phase(dev, smi: str, counted) -> dict:
     t_phase = time.perf_counter()
     for fn in counted:
         fn.launches = 0
-    outs, runs = {}, {}
-    for name, argv in EXAMPLES:
-        before = {fn.__name__: fn.launches for fn in counted}
-        t0 = time.perf_counter()
-        outs[name] = mods[name].main(argv + extra)
-        sync(dev)
-        runs[name] = dict(
-            wall_s=time.perf_counter() - t0,
-            launches={fn.__name__: fn.launches - before[fn.__name__]
-                      for fn in counted})
-        print(f"  example {name} {' '.join(argv)}: "
-              f"{runs[name]['wall_s']:.1f} s, launches "
-              f"{runs[name]['launches']}")
+    outs, runs, seen, calls = {}, {}, {}, {}
+    with first_operands(seen, calls):
+        for name, argv in EXAMPLES:
+            before = {fn.__name__: fn.launches for fn in counted}
+            t0 = time.perf_counter()
+            outs[name] = mods[name].main(argv + extra)
+            sync(dev)
+            runs[name] = dict(
+                wall_s=time.perf_counter() - t0,
+                launches={fn.__name__: fn.launches - before[fn.__name__]
+                          for fn in counted})
+            print(f"  example {name} {' '.join(argv)}: "
+                  f"{runs[name]['wall_s']:.1f} s, launches "
+                  f"{runs[name]['launches']}")
     launches = {fn.__name__: fn.launches for fn in counted}
     on_card = dev.type == "cuda"
+    for k, n in launches.items():
+        require(calls.get(k, 0) >= n,
+                f"examples: {k} launched {n} times, called {calls.get(k)}")
+    # every form of call on the path against its plain version
+    rows = caught_rows(card, seen, "examples")
+    require(set(rows) >= {k for k, n in launches.items() if n},
+            f"examples: launched kernels without a checked call: "
+            f"{launches} {list(rows)}")
+    del seen
     for name, kernels in (("torch_quickstart", ("fused_mlp_votes",
                                                 "fused_conv_votes")),
                           ("torch_picbnn_serve", ("cam_vote",
@@ -3047,9 +3214,15 @@ def examples_phase(dev, smi: str, counted) -> dict:
             require(runs[name]["launches"][k] > 0 or not on_card,
                     f"{k} was not launched in {name}")
 
-    # the quickstart: card == CPU on the same folded weights
+    # the quickstart: card == CPU on the same folded weights, the raw
+    # int32 votes and the predictions
     qs, argmax = outs["torch_quickstart"], InferenceSpec(reduction="argmax")
     made = qs["made"]
+    for dep, x in (("dep", "vxb"), ("cnn_dep", "vx")):
+        got = made[dep].run(made[x], InferenceSpec())
+        want = made[dep].pipeline("cpu").run(made[x], InferenceSpec())
+        require(got.dtype == torch.int32 and torch.equal(got.cpu(), want),
+                f"quickstart: {dep}'s votes on the card != the CPU's")
     mlp_cpu = made["dep"].pipeline("cpu").run(made["vxb"], argmax)
     require(torch.equal(made["pred"], mlp_cpu.cpu()),
             "quickstart: MLP predictions on the card != the CPU's")
@@ -3084,7 +3257,8 @@ def examples_phase(dev, smi: str, counted) -> dict:
             f"ft_demo: restarts {ft['restarts']}, params identical "
             f"{ft['params_identical']}")
     phase_s = time.perf_counter() - t_phase
-    print(f"  quickstart: card == CPU (MLP and CNN predictions), served == "
+    print(f"  quickstart: card == CPU (MLP and CNN votes and predictions), "
+          f"served == "
           f"direct; picbnn_serve: streams and sweep card == CPU; lm_train "
           f"{lt['steps']} finite losses; ft_demo {ft['restarts']} restarts, "
           f"params identical")
@@ -3092,8 +3266,8 @@ def examples_phase(dev, smi: str, counted) -> dict:
     numbers = {name: {k: v for k, v in out.items()
                       if k not in ("made", "losses")}
                for name, out in outs.items()}
-    return dict(runs=runs, launches=launches, numbers=numbers,
-                phase_s=phase_s, card=smi)
+    return dict(runs=runs, launches=launches, calls=calls, kernels=rows,
+                numbers=numbers, phase_s=phase_s, card=smi)
 
 
 def main() -> int:
@@ -3484,7 +3658,7 @@ def run(dev: torch.device, b_main: int, batches, card: Card,
     print(json.dumps({"dryrun": dry}))
 
     # ---------------------------------------------- the examples (phase 11)
-    ex = examples_phase(dev, smi, counted)
+    ex = examples_phase(dev, smi, card, counted)
     print(json.dumps({"examples": ex}))
 
     # ------------------------------------------------------------ summary
@@ -3522,6 +3696,7 @@ def run(dev: torch.device, b_main: int, batches, card: Card,
             dryrun_launches=dry["launches"][name],
             # phase 11: the four examples, counted from 0
             examples_launches=ex["launches"][name],
+            examples=ex["kernels"].get(name),
             sampled_ms=r.get("sampled", {}).get(
                 "hg_cnn" if "conv" in name else "hg", {}).get("ms"),
             sampled=r.get("sampled"),
@@ -3529,7 +3704,8 @@ def run(dev: torch.device, b_main: int, batches, card: Card,
                 v["max_abs_err"] for v in [*r["per_model"].values(),
                                            *lm["kernels"].get(name, []),
                                            *lm_long["kernels"].get(name,
-                                                                   [])]),
+                                                                   []),
+                                           *ex["kernels"].get(name, [])]),
             ms=main["ms"], kernel_ms=main["ms"], call_ms=main["call_ms"],
             plain_ms=main["plain_ms"],
             bound_ms=main["bound_ms"], bound_by=main["bound_by"],

@@ -185,7 +185,9 @@ def _attention_chunk(m, l, acc, qf, k_i, v_i, q_pos, kp_i, window: int,
     sum l [B, G, R, Sq] and acc [B, G, R, Sq, dh] with the exp(m - m_new)
     correction.  v_i [B, C, G, dh]; kp_i [B, C] int32.  `in_place` (the
     loop without autograd or remat) masks, shifts and exponentiates the
-    scores in place: one score tensor live, not four."""
+    scores in place: one score tensor live, not four.  Grad mode cannot
+    tell: `scan_chunks` runs its forward without grad, and under remat
+    "dots" a selective checkpoint refuses tensors changed in place."""
     _CHUNK_SCOPE.depth += 1
     try:
         s = torch.einsum("bgrqd,bcgd->bgrqc", qf, k_i.to(F32))

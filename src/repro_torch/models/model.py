@@ -487,8 +487,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     def leaf(b, sub, name, shape, dtype, fill):
         if specs is None:
             return torch.full(shape, fill, dtype=dtype, device=device)
-        return R.filled(shape, fill, dtype, specs[b][sub][name], mesh,
-                        device)
+        return R.filled(shape, fill, dtype, specs[b][sub][name], mesh)
 
     def one_block(b):
         out = {}

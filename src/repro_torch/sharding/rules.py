@@ -373,24 +373,14 @@ def place(x: torch.Tensor, mesh, placements):
                               shape=x.shape, stride=x.stride())
 
 
-def filled(shape, value, dtype, spec, mesh, device):
+def filled(shape, value, dtype, spec, mesh):
     """A DTensor of `shape` holding `value` everywhere, laid out by the
-    sanitised `spec`: each rank makes its own shard only (no rank ever
-    holds the whole tensor)."""
-    from torch.distributed.tensor import DTensor
+    sanitised `spec` on the mesh's device type: each rank makes its own
+    shard only (no rank ever holds the whole tensor)."""
+    from torch.distributed.tensor import full
 
-    pl = layout(spec, shape, mesh)
-    loc = list(shape)
-    for i, q in enumerate(pl):
-        if q.is_shard():
-            loc[q.dim] //= mesh.size(i)
-    stride, n = [], 1
-    for d in reversed(shape):
-        stride.insert(0, n)
-        n *= d
-    return DTensor.from_local(
-        torch.full(loc, value, dtype=dtype, device=device), mesh, pl,
-        run_check=False, shape=torch.Size(shape), stride=tuple(stride))
+    return full(shape, value, dtype=dtype, device_mesh=mesh,
+                placements=layout(spec, shape, mesh))
 
 
 def distribute(x: torch.Tensor, spec, mesh):
@@ -597,38 +587,48 @@ def masked_ids(ids: torch.Tensor, start: int, size: int) -> tuple:
 def sharded_embedding(tokens: torch.Tensor, table) -> torch.Tensor:
     """Rows of a DTensor `table` [V, D] at `tokens` [B, ...] (plain, the
     same on every rank, or a DTensor), on the local shards: each rank
-    looks up only its batch rows (the mesh dims that the active rules'
+    looks up its batch rows (the mesh dims that the active rules'
     "batch" maps to, where they do not split V) on the rows of V it
     holds, zeros elsewhere.  The output [B, ..., D] is `Shard(0)` over
     the batch's mesh dims, a partial sum over V's, summed over those at
     once, and split along D where the table's D is split and the batch
-    is not.  Where the batch is split the table is gathered along that
-    mesh dim and its gradient comes back as a partial sum.  Returns a
-    DTensor.  (DTensor's own embedding masks its ids with a boolean
-    index, which a fake CUDA tensor cannot run without a card.)"""
+    is not.  Where one mesh dim of n ranks splits both the batch and the
+    table's D, a rank needs either the table's other columns or the
+    other ranks' tokens, and takes the cheaper: the table's D gathered
+    (each rank receives (n - 1) * its rows * D / n) where the tokens
+    number at least n times the table's local rows (training, prefill);
+    else the tokens, all B rows looked up on the rank's own columns and
+    moved to their batch shards by one all-to-all ((n - 1) / n * B * S *
+    D / n) (decode).  Where a rank looks up only its batch rows on the
+    gathered table, the table's gradient comes back as a partial sum.
+    Returns a DTensor.  (DTensor's own embedding masks its ids with a
+    boolean index, which a fake CUDA tensor cannot run without a card.)"""
     import torch.nn.functional as F
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     mesh = table.device_mesh
     batch = layout(logical_to_spec("batch", *[None] * (tokens.ndim - 1)),
                    tokens.shape, mesh)
-    tok, tab, grad, out = [], [], [], []
-    for q, b in zip(table.placements, batch):
+    start, rows = shard_range(table, 0)
+    tok, tab, grad, out, final = [], [], [], [], []
+    for i, (q, b) in enumerate(zip(table.placements, batch)):
         if q.is_shard(0):  # V split: this rank's rows, a partial sum
             tok.append(Replicate()), tab.append(q), grad.append(q)
-            out.append(Partial())
-        elif b.is_shard(0):  # batch split: the table whole on this dim
+            out.append(Partial()), final.append(Replicate())
+        elif b.is_shard(0) and not (
+                q.is_shard(1) and tokens.numel() < rows * mesh.size(i)):
+            # batch split: this rank's tokens, the table whole on this dim
             tok.append(b), tab.append(Replicate()), grad.append(Partial())
-            out.append(b)
-        else:
+            out.append(b), final.append(b)
+        else:  # every token here; the table's columns as they lie
             tok.append(Replicate()), tab.append(q), grad.append(q)
             out.append(Shard(tokens.ndim) if q.is_shard(1) else Replicate())
-    start, rows = shard_range(table, 0)
+            final.append(b if b.is_shard(0) else out[-1])
     ids, miss = masked_ids(cut(tokens, mesh, tok), start, rows)
     y = F.embedding(ids, local(table, tab, grad))
     y = y.masked_fill(miss[..., None], 0)
     return DTensor.from_local(y, mesh, out, run_check=False).redistribute(
-        mesh, summed(out))
+        mesh, final)
 
 
 def sharded_matmul(x: torch.Tensor, w) -> torch.Tensor:

@@ -3,8 +3,8 @@ subprocess: the port's sharded LM serving (a Mamba model too), MoE
 dispatch groups and train step (a Mamba model too) against the
 unsharded port on the same weights, on (data, model)
 meshes of (1, 2) and (2, 1) (the step also for an MoE model over two
-microbatches; the loss's and every parameter's gradients; a decode over
-a sequence-split cache), and the train launcher with --ckpt-dir
+microbatches; the loss's and every parameter's gradients; the
+embedding's two gathers; a decode over a sequence-split cache), and the train launcher with --ckpt-dir
 (saved, restarted, continued) against an uninterrupted run, counting
 the checkpoint writes of each rank.  Rank 0 writes the MoE output to
 `<out>/moe_port.npz` and prints one line, "SHARDED-OK <json>", with every
@@ -203,6 +203,41 @@ def _loss_grads(mesh) -> dict:
             "loss_grads/vocab_placements": str(p1.embed.placements)}
 
 
+def _embed_forms(mesh) -> dict:
+    """llama3.2-1b+smoke's embedding under TRAIN_RULES at 4 x 16 tokens
+    (fewer than dp times the table's local rows: on a data split the
+    tokens are gathered) and 4 x 256 (the table's columns gathered): the
+    output and the table's gradient against the unsharded lookup's, and
+    the output's local shape."""
+    import torch.nn.functional as F
+
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    from repro_torch.sharding import TRAIN_RULES, use_rules
+
+    cfg = configs.get_config("llama3.2-1b+smoke")
+    rules = TRAIN_RULES.resolve(mesh)
+    p0 = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    p1 = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    M.shard_params(p1, mesh, rules)
+    gen, res = torch.Generator().manual_seed(3), {}
+    for s in (16, 256):
+        tok = torch.randint(0, cfg.vocab_size, (4, s), generator=gen)
+        w = torch.randn(4, s, cfg.d_model, generator=gen)
+        y0 = F.embedding(tok, p0.embed)
+        g0, = torch.autograd.grad((y0 * w).sum(), [p0.embed])
+        with use_rules(rules, mesh):
+            y1 = M._embedding(p1, tok)
+            with M._sharded(p1):
+                g1, = torch.autograd.grad((y1.full_tensor() * w).sum(),
+                                          [p1.embed])
+        res[f"embed_forms/{s}/err"] = float((_full(y1) - y0).abs().max())
+        res[f"embed_forms/{s}/grad_err"] = float((_full(g1) - g0).abs()
+                                                 .max())
+        res[f"embed_forms/{s}/local"] = list(y1.to_local().shape)
+    return res
+
+
 def _seqcache(mesh) -> dict:
     """stablelm-3b+smoke under SERVE_SEQCACHE_RULES (the cache's sequence
     split over 'model'): prefill and three decode steps against the
@@ -334,7 +369,8 @@ def worker(rank: int, port: int, out_dir: str) -> None:
                          **_train(mesh, "falcon-mamba-7b+smoke", 1,
                                   "train_mamba"),
                          **_bitlinear_unaligned(mesh),
-                         **_loss_grads(mesh), **_seqcache(mesh),
+                         **_loss_grads(mesh), **_embed_forms(mesh),
+                         **_seqcache(mesh),
                          **_ckpt(mesh, out_dir)}.items():
                 res[f"{tag}/{k}"] = v
             if shape == (2, 1):

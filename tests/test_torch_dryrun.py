@@ -302,8 +302,11 @@ def test_vocab_split_train_trace_holds_no_whole_one_hot(fake_2x2,
     """llama3.2-1b+smoke (vocab widened to 16,384 so the loss dominates)
     train step on a fake 2 x 2 mesh, vocab split over 'model', batch over
     'data': no tensor of B * chunk * V elements is made (the one-hot of
-    the whole batch over the whole vocabulary), the embedding's output a
-    device is [B/dp, S, D], and the counted peak falls by at least that
+    the whole batch over the whole vocabulary), the embedding looks up
+    the whole batch on the device's own columns, [B, S, D/dp] (its
+    tokens, fewer than dp times the table's local rows, are cheaper to
+    gather than the table's columns: `test_vocab_split_embedding_gathers_
+    the_cheaper_operand`), and the counted peak falls by at least that
     one-hot's bytes (int64, as `F.one_hot` makes it) against the same
     trace with the one-hot gold logit, and below the trace with the vocab
     unsplit."""
@@ -320,7 +323,7 @@ def test_vocab_split_train_trace_holds_no_whole_one_hot(fake_2x2,
     assert not [o for o in tr.ops for shape in o["out"]
                 if math.prod(shape) >= whole], "a whole-batch one-hot"
     emb = [o["out"][0] for o in tr.ops if o["op"] == "aten.embedding"]
-    assert emb and all(shape == [b // 2, s, d] for shape in emb), emb
+    assert emb and all(shape == [b, s, d // 2] for shape in emb), emb
 
     monkeypatch.setattr(tM, "_gold_logit", _one_hot_gold)
     old = dryrun.lower_cell(cfg, SMOKE_TRAIN, fake_2x2)
@@ -334,6 +337,42 @@ def test_vocab_split_train_trace_holds_no_whole_one_hot(fake_2x2,
     whole_v = dryrun.lower_cell(cfg, SMOKE_TRAIN, fake_2x2)
     assert tr.memory["temp_bytes_per_device"] < \
         whole_v.memory["temp_bytes_per_device"]
+
+
+@pytest.mark.parametrize("b, s, gathered", [(4, 8, "tokens"),
+                                             (8, 256, "table")])
+def test_vocab_split_embedding_gathers_the_cheaper_operand(fake_2x2, b, s,
+                                                           gathered):
+    """A [1024, 64] table under TRAIN_RULES on a fake 2 x 2 mesh (V split
+    over 'model', D over 'data', the tokens' batch over 'data'): each
+    device's output is [B/2, S, D], a partial sum over the vocab shards.
+    Where the tokens number fewer than 2 x the 512 local table rows the
+    tokens are gathered (every row looked up on the device's own 32
+    columns, moved to its batch shard), else the table's columns (the
+    device's own rows looked up on all 64): the lookup's shape shows
+    which, and only the second gathers the table's 512 x 64 local rows."""
+    from repro_torch.launch import hlo_cost
+    from repro_torch.sharding import use_rules
+    from repro_torch.sharding.rules import distribute, sharded_embedding
+
+    rules = TRAIN_RULES.resolve(fake_2x2)
+    v, d = 1024, 64
+    with FakeTensorMode(), use_rules(rules, fake_2x2):
+        dev = specs.fake_device()
+        table = distribute(torch.zeros(v, d, device=dev),
+                           rules.spec("p_embed_v", "p_embed_d"), fake_2x2)
+        tokens = torch.zeros(b, s, dtype=torch.int32, device=dev)
+        with hlo_cost.CostCounter(record=True) as counter:
+            y = sharded_embedding(tokens, table)
+    assert tuple(y.to_local().shape) == (b // 2, s, d)
+    assert str(y.placements) == "(Shard(dim=0), Replicate())"
+    emb = [o["out"][0] for o in counter.ops if o["op"] == "aten.embedding"]
+    assert emb == ([[b, s, d // 2]] if gathered == "tokens"
+                   else [[b // 2, s, d]])
+    table_moves = [o for o in counter.ops if o["op"].startswith(
+        "collective.all_gather") and v // 2 * d in
+        [math.prod(x) for x in o["out"]]]
+    assert bool(table_moves) == (gathered == "table"), table_moves
 
 
 def test_seqcache_decode_traces_on_a_fake_mesh(fake_2x2):

@@ -446,6 +446,21 @@ def test_sharded_loss_and_embedding_grads_equal_unsharded(two_ranks, mesh):
 
 
 @pytest.mark.parametrize("mesh", ["1x2", "2x1"])
+@pytest.mark.parametrize("seq", [16, 256])
+def test_sharded_embedding_gathers_equal_unsharded(two_ranks, mesh, seq):
+    """llama3.2-1b+smoke's embedding under TRAIN_RULES at 4 x 16 tokens
+    (on a data split the tokens gathered, fewer than dp times the
+    table's 256 rows) and 4 x 256 (the table's columns gathered): the
+    output and the table's gradient equal the unsharded lookup's, and
+    each rank's output is [B/dp, S, D]."""
+    res, _, _ = two_ranks
+    key = f"{mesh}/embed_forms/{seq}"
+    assert res[f"{key}/err"] == 0.0
+    assert res[f"{key}/grad_err"] <= 1e-5
+    assert res[f"{key}/local"] == [4 // int(mesh[0]), seq, 64]
+
+
+@pytest.mark.parametrize("mesh", ["1x2", "2x1"])
 def test_seqcache_decode_equals_unsharded(two_ranks, mesh):
     """stablelm-3b+smoke under SERVE_SEQCACHE_RULES (the cache's sequence
     split over 'model'): prefill and three decode steps equal the
