@@ -101,14 +101,18 @@ exit 0):
    through `Engine.generate`.  Kernels 1 and 2 must have launched.
    Checks: each kernel `torch.equal` to its plain version and to the
    library's float32 ±1 product at every LM shape of the path (kernel 2
-   at C = 128,256), on the models' packed rows; teacher-forced decode
+   at C = 128,256), on the models' packed rows, and at the launch plans'
+   edges (kernel 2 at B = 1, 16, 17, 32 on the CAM head's rows, kernel 1
+   at each plan's boundary on random words); teacher-forced decode
    logits within LM_ATOL (LM_ATOL_BITLINEAR with a BitLinear FFN) of
    `forward`; the engine's tokens equal to the teacher-forced argmax and
    to forward's where its margin exceeds twice the tolerance;
    llama3.2-1b at full width, 2 blocks, float32, and its BitLinear
    projections: card == CPU.  Prefill ms, decode ms a token, tokens/s,
    and each kernel's device ms at the LM shapes beside its bound and the
-   library's time, in a `{"lm": ...}` line.  Then the custom ops'
+   library's time, in a `{"lm": ...}` line; the previous version's times
+   (`LM_PREV_MS`, `LM_PREV_DECODE_MS`) are printed beside them, never put
+   in a JSON line.  Then the custom ops'
    dispatch (kernels 1 and 2 are `torch.library` custom ops): each op
    against its ctypes launch called straight, a call at the decode
    shapes, and decode ms a token of +binary-ffn, +cam-head and the plain
@@ -1220,6 +1224,30 @@ LM_MOE_F32_ATOL = 1e-3
 # CPU, the same arithmetic in another summation order; the BitLinear
 # projections on the same inputs (kernel 1 against the plain route)
 LM_F32_ATOL, LM_F32_RTOL = 1e-4, 1e-4
+# device ms of kernels 1 and 2 at the LM shapes in the previous version of
+# the kernels (NVIDIA H100 80GB HBM3, 700 W), printed beside this run's as
+# "prev": the BitLinear prefill (M = 64 and 32,768) and decode (M = 4, 1)
+# projections, the CAM heads at decode
+LM_PREV_MS = {"x[64,64] w[8192,64]": 0.0052, "x[64,256] w[2048,256]": 0.0097,
+              "x[4,64] w[8192,64]": 0.0037, "x[4,256] w[2048,256]": 0.0090,
+              "x[32768,64] w[8192,64]": 1.0917,
+              "x[32768,256] w[2048,256]": 0.7327,
+              "x[1,64] w[8192,64]": 0.0037, "x[1,256] w[2048,256]": 0.0091,
+              "q[4,64] rows[128256,64]": 2.9669,
+              "q[1,64] rows[128256,64]": 2.9092,
+              "q[4,48] rows[2048,48]": 0.0338}
+# the previous version's decode ms a token (phase 7: llama3.2-1b plain /
+# +binary-ffn / +cam-head) and long-context prefill s and decode ms a
+# token (the same card), printed beside this run's; reported, not gated
+LM_PREV_DECODE_MS = {"llama3.2-1b": 34.27, "llama3.2-1b+binary-ffn": 61.01,
+                     "llama3.2-1b+cam-head": 50.19}
+LONG_PREV = dict(prefill_s=11.40, decode_ms=(362.82, 521.06))
+# kernel 2's query tiles at the vocabulary head, and kernel 1's plan
+# boundaries: (M, N, Kw) at the large tile's N >= 256 and three 32 x 128
+# blocks an SM (264 blocks, 266), at split_k's M <= 16 and Kw >= 64
+LM_EDGE_B = (1, 16, 17, 32)
+GEMM_EDGES = ((4224, 256, 64), (4225, 256, 64), (4225, 255, 64),
+              (16, 2048, 64), (17, 2048, 64), (4, 2048, 63), (4, 2048, 64))
 
 
 def lm_requests(cfg, seed: int) -> list:
@@ -1313,8 +1341,10 @@ def lm_kernel_rows(card, name, cases) -> list:
                    library_ms=device_ms(lib, iters=20), library=lib_name,
                    max_abs_err=int((got - want).abs().max()))
         rows.append(row)
+        prev = next((v for k, v in LM_PREV_MS.items() if k in label), None)
         print(f"  LM {name} {label}: == plain == library; kernel "
-              f"{row['ms']} ms (call {row['call_ms']:.4f} ms), plain "
+              f"{row['ms']} ms (prev {prev}; call "
+              f"{row['call_ms']:.4f} ms), plain "
               f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
               f"({row['bound_route']}), {lib_name} {row['library_ms']} ms")
     return rows
@@ -1448,7 +1478,8 @@ def lm_phase(dev, smi: str, card, counted, quick: bool) -> dict:
     (SSM) at full width, 2 blocks, through `Engine.generate`.  Kernels 1
     and 2 must have launched.  Then the checks: each kernel equal to its
     plain version (and to the library's ±1 product) at every LM shape of
-    the path, on the model's packed rows; decode logits, teacher-forced,
+    the path, on the model's packed rows, and at the launch plans' edges
+    (LM_EDGE_B, GEMM_EDGES); decode logits, teacher-forced,
     within LM_ATOL of `forward` over the generated sequence; the
     engine's tokens equal to the teacher-forced argmax and to forward's
     where its top-2 margin exceeds 2 * LM_ATOL; llama3.2-1b at full
@@ -1510,7 +1541,8 @@ def lm_phase(dev, smi: str, card, counted, quick: bool) -> dict:
                 f"{name} was not launched on the LM path")
     for key, p in perf.items():
         print(f"  {key:26s} prefill {p['prefill_ms']:.2f} ms, decode "
-              f"{p['decode_ms_per_token']:.3f} ms/token, "
+              f"{p['decode_ms_per_token']:.3f} ms/token (prev "
+              f"{LM_PREV_DECODE_MS.get(key)}), "
               f"{p['tokens_per_s']:.1f} tokens/s ({p['requests']} requests, "
               f"{p['new_tokens']} new tokens; {smi})")
     # the custom ops' dispatch in this one call: each op against its
@@ -1581,6 +1613,17 @@ def lm_phase(dev, smi: str, card, counted, quick: bool) -> dict:
                                          model.cam_head.rows)
             k2.append(vote_case(f"CAM head {label}", binary_lm.sign_bits(h),
                                 rows, model.cam_head.thresholds))
+        # kernel 2 at the vocabulary plan's query tiles (B = 1, 16: one
+        # 16-query tile; 17, 32: one of 32) on the CAM head's own rows,
+        # kernel 1 at its plans' boundaries (random words)
+        rows = binary_lm.packed_rows(cam.cam_head, "rows", cam.cam_head.rows)
+        for b in LM_EDGE_B:
+            k2.append(vote_case(f"CAM head edge", words(b, rows.shape[1]),
+                                rows, cam.cam_head.thresholds))
+        for m, n, kw in GEMM_EDGES:
+            plan = bg.gemm_plan(m, n, kw, sms=card.sms)["plan"]
+            k1.append(gemm_case(f"plan edge {plan}", words(m, kw),
+                                words(n, kw)))
         lm_rows = {"binary_gemm_hd": lm_kernel_rows(card, "binary_gemm_hd",
                                                     k1),
                    "cam_vote": lm_kernel_rows(card, "cam_vote", k2)}
@@ -1857,7 +1900,8 @@ def lm_long_phase(dev, smi: str, card, counted, quick: bool) -> dict:
     scores_gb = 1 * cfg.n_heads * s * s * 4 / 1e9
     dec = [round(x, 2) for x in decode_ms]
     print(f"lm long context: {cfg.name}, prefill B = 1, S = {s}: "
-          f"{prefill_s:.2f} s; decode ms a token {dec}; "
+          f"{prefill_s:.2f} s (prev {LONG_PREV['prefill_s']}); decode ms a "
+          f"token {dec} (prev {LONG_PREV['decode_ms']}); "
           f"max_memory_allocated {peak} GB against "
           f"{scores_gb:.1f} GB of one layer's S x S float32 scores; "
           f"launches {launches}, per step {per_step} ({smi})")

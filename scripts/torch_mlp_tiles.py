@@ -1,10 +1,10 @@
-"""Kernels 3 and 2 on the card: the block program's design choices, timed.
+"""Kernel 3 on the card: the block program's design choices, timed.
 
     python3 scripts/torch_mlp_tiles.py
 
-Kernel 3 (`fused_mlp_votes`) and kernel 2 (`cam_vote`) run the block
-program of csrc/mlp_block.cuh.  This script builds copies of each library
-from the sources in the checkout, each with one line replaced.  Six undo
+Kernel 3 (`fused_mlp_votes`) runs the block program of
+csrc/mlp_block.cuh.  This script builds copies of its library from the
+sources in the checkout, each with one line replaced.  Six undo
 a design choice and must still equal the plain version: `rows_global`
 reads the rows from global memory wherever they are, `rows_smem` stages
 them in shared memory wherever they fit (the shipped rule stages only
@@ -18,8 +18,8 @@ returns at once, `staging_only` stops once the first tile's copies, the
 schedule and the vote table are in, `no_head` (kernel 3)
 stops before the head.  It times the shipped library and the copies
 (CUDA-graph replay, int thresholds, B = 4096) at the paper's MNIST
-784-128-10 and HG 4096-128-20 MLPs, kernel 2 on their head queries, in
-the order built, copies, copies reversed, built; then kernel 3's shipped
+784-128-10 and HG 4096-128-20 MLPs, in the order built, copies, copies
+reversed, built; then kernel 3's shipped
 library at bq in {16, 32, 64, 128}, in that order and back.  Prints the
 card's name and power limit first and a JSON line last.  Needs nvcc and
 one card; builds into build/mlp_tiles/.
@@ -127,14 +127,14 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from chip_smoke import SEED, device_ms, nvidia_smi, random_folded
     from repro_torch.configs.paper_mlp import HG_MLP, MNIST_MLP, PAPER_ENSEMBLE
-    from repro_torch.core import binarize, bnn, cam
-    from repro_torch.kernels import _build, cam_search, fused_mlp
+    from repro_torch.core import binarize, bnn
+    from repro_torch.kernels import _build, fused_mlp
     from repro_torch.pipeline import compile_pipeline
 
     smi = nvidia_smi("name,power.limit")
     print(f"card: {smi}")
     dev = torch.device("cuda", 0)
-    names = ("fused_mlp", "cam_search")
+    names = ("fused_mlp",)
     variants = build_variants(names)
     libs = {lib: {"built": _build.library(lib), **variants[lib]}
             for lib in names}
@@ -152,22 +152,16 @@ def main() -> int:
         xp = binarize.pack_pm1(x)
         head, thr = pipe.head.cam.rows_packed, pipe.head.thresholds
         bias = pipe.head.bias_cells
-        hidden = bnn.folded_forward_exact(folded[:1], x) >= 0
-        q = cam.query_with_bias(hidden.float() * 2 - 1, bias)
         args = (xp, pipe.layer_ws, pipe.layer_cs, pipe.layer_n_bits, head,
                 thr)
         calls = {
             "fused_mlp": (
                 lambda: fused_mlp.fused_mlp_votes(*args, bias_cells=bias),
                 fused_mlp.fused_mlp_votes_plain(*args, bias_cells=bias)),
-            "cam_search": (lambda: cam_search.cam_vote(q, head, thr),
-                           cam_search.cam_vote_plain(q, head, thr)),
         }
         for lib, (fn, want) in calls.items():
-            keys = [k for k in order  # kernel 2 is the head alone
-                    if not (lib == "cam_search" and k == "no_head")]
-            times = {k: [] for k in keys}
-            for key in keys:
+            times = {k: [] for k in order}
+            for key in order:
                 _build._libs[lib] = libs[lib][key]
                 got = fn()
                 if exact.get(key, True) and not torch.equal(got, want):

@@ -34,9 +34,11 @@ _INT = ctypes.c_int
 _SIGNATURES = {
     "binary_gemm": {
         "binary_gemm_hd_launch": [_VOID_P] * 3 + [_INT] * 3 + [_VOID_P],
+        "binary_gemm_plan": [_INT] * 5 + [_VOID_P],
     },
     "cam_search": {
         "cam_vote_launch": [_VOID_P] * 5 + [_INT] * 5 + [_VOID_P],
+        "cam_vote_plan": [_INT] * 6 + [_VOID_P],
     },
     "fused_mlp": {
         "fused_mlp_votes_launch": (

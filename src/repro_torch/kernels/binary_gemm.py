@@ -9,8 +9,21 @@ its CPU kernel runs `binary_gemm_hd_plain`, the same arithmetic in plain
 PyTorch, and its fake form gives the [M, N] int32 result's shape, so the
 op traces under `FakeTensorMode`, on the meta device and on DTensor
 local shards (`launch/dryrun.py`).  It replaces the Pallas kernel
-`repro/kernels/binary_gemm.py::binary_gemm_hd`; the source note in the
-.cu file says what bounds it on the card and how it is tiled.
+`repro/kernels/binary_gemm.py::binary_gemm_hd`.
+
+The launch picks one of three plans by shape (`gemm_plan`, the host twin
+of the launcher's choice; the .cu file's note says what bounds each):
+`tile32x128` for the paper's shapes (32 x 128 output tiles, K streamed
+through a cp.async ring, two `mma.sync .and.popc` products a distance),
+`large` for N >= 256 where the 32 x 128 tile's grid would hold more
+than two blocks an SM (it wins from three: `scripts/torch_kernel_plans.py`
+times both across the switch), on 16-byte-aligned rows (a persistent
+block an SM walking 128 x 256 tiles,
+fed by TMA boxes, on `wgmma .and.popc`, one product a distance beside
+the rows' popcounts, the output the bound: the long-context prefill),
+and `split_k` for M <= 16 and Kw >= 64 (one n8 tile of columns a block,
+K split among its eight warps and summed exactly in int32: the decode
+BitLinear).
 """
 
 from __future__ import annotations
@@ -30,6 +43,49 @@ def binary_gemm_hd_plain(x_packed: torch.Tensor,
     for k in range(kw):
         acc += popcount32(x_packed[:, k, None] ^ w_packed[None, :, k])
     return acc
+
+
+TILE32X128, LARGE, SPLIT_K = "tile32x128", "large", "split_k"
+SMS = 132  # streaming multiprocessors of an H100 SXM
+# csrc/binary_gemm.cu kSmallWaves: the large tile takes over where the
+# 32 x 128 tile's grid would hold more blocks an SM
+SMALL_WAVES = 2
+SMEM_LIMIT = 232448  # bytes of shared memory a block may use on an H100
+# csrc/binary_gemm.cu: the large tile's ring (4 stages of 128 + 256 rows
+# by 32 words), epilogue slabs (8 warps x 16 x 40 words), popcounts, the
+# stages' mbarriers and 1 KB to align the ring
+LARGE_SMEM = 4 * 4 * 384 * 32 + 4 * (8 * 16 * 40 + 2 * 384) + 8 * 4 + 1024
+
+
+def gemm_plan(m: int, n: int, kw: int, aligned: bool = True,
+              sms: int = SMS) -> dict:
+    """Host twin of csrc/binary_gemm.cu `binary_gemm_plan`: the plan the
+    launch takes for x [m, kw] against w [n, kw], with its grid and
+    dynamic shared memory.  `aligned`: both operands' first words on 16
+    bytes (the large tile also needs Kw % 4 == 0: it copies whole 16-byte
+    granules).  split_k where m <= 16 and kw >= 64; large where aligned,
+    n >= 256 and the 32 x 128 tile's grid would hold more than
+    SMALL_WAVES blocks an SM (one persistent block an SM, at most one a
+    128 x 256 tile, walks the tiles); else the 32 x 128 tile."""
+    if min(m, n, sms) <= 0 or kw < 0:
+        raise ValueError(f"no plan for m={m} n={n} kw={kw} sms={sms}")
+    if m <= 16 and kw >= 64:
+        return dict(plan=SPLIT_K, tile=(16, 8), grid=(-(-n // 8), 1),
+                    threads=256, smem=0)
+    small_blocks = -(-m // 32) * -(-n // 128)
+    if aligned and kw % 4 == 0 and n >= 256 and small_blocks > \
+            SMALL_WAVES * sms:
+        tiles = -(-m // 128) * -(-n // 256)
+        return dict(plan=LARGE, tile=(128, 256), grid=(min(tiles, sms), 1),
+                    threads=256, smem=LARGE_SMEM)
+    return dict(plan=TILE32X128, tile=(32, 128),
+                grid=(-(-n // 128), -(-m // 32)), threads=256, smem=0)
+
+
+def words_aligned(*ts: torch.Tensor) -> bool:
+    """Whether packed operands take the kernels' 16-byte copies: Kw % 4
+    == 0 and every first word on 16 bytes."""
+    return all(t.shape[1] % 4 == 0 and t.data_ptr() % 16 == 0 for t in ts)
 
 
 def _check_words(name: str, t: torch.Tensor) -> None:
@@ -79,12 +135,13 @@ def launch(x_packed: torch.Tensor, w_packed: torch.Tensor) -> torch.Tensor:
     operands)."""
     m, kw = x_packed.shape
     n = w_packed.shape[0]
-    if -(-m // 32) > 65535:
-        raise ValueError(f"M = {m} exceeds the kernel grid (2,097,120 rows)")
     out = torch.empty((m, n), dtype=torch.int32, device=x_packed.device)
     if m == 0 or n == 0:
         return out
     x, w = x_packed.contiguous(), w_packed.contiguous()
+    if gemm_plan(m, n, kw, words_aligned(x, w))["grid"][1] > 65535:
+        raise ValueError(f"M = {m} exceeds the 32 x 128 tile's grid "
+                         "(2,097,120 rows)")
     lib = _build.library("binary_gemm")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream

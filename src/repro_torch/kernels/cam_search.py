@@ -14,12 +14,19 @@ kernel launches `csrc/cam_search.cu` for tensors on the card, its CPU
 kernel runs `cam_vote_plain`, and its fake form gives the [B, C] int32
 result's shape (so it traces under `FakeTensorMode`, on the meta device
 and on DTensor local shards).  It replaces the Pallas kernel
-`repro/kernels/cam_search.py::cam_vote`.  The
-kernel is the block program of kernels 2 and 3 (`csrc/mlp_block.cuh`)
-with no hidden layers: distances on the 1-bit tensor cores, and for the
-shared schedules a per-block table of the vote at every distance, whose
-host twin is `vote_table`.  `block_smem_bytes` is the host twin of the
-block program's shared-memory layout.
+`repro/kernels/cam_search.py::cam_vote`, and grids as it does, over
+query tiles and row tiles.  At an LM head (B <= 32 against up to 128,256
+rows) the rows' bytes bound it: the grid gives every SM about four
+blocks, each streaming its rows through a ring of 2-D TMA boxes (4-byte
+cp.async copies for other widths); at the paper's heads (B = 4096
+against 10 or 20 rows) one row tile serves each query tile, its rows
+read from global memory, and the launch's latency bounds it.  Distances
+run on the 1-bit tensor cores; a block votes through a table of the vote
+at every distance (host twin `vote_table`) where it votes more pairs
+than the table has entries, else it counts the P compares.  `cam_plan`
+is the host twin of the launch plan, `uses_table` of the vote's rule.
+
+`vote_table_len` is the table's length in kernels 2 and 3.
 """
 
 from __future__ import annotations
@@ -30,15 +37,23 @@ import torch
 
 from repro_torch.core.binarize import WORD
 from repro_torch.kernels import _build
-from repro_torch.kernels.binary_gemm import _check_words, binary_gemm_hd_plain
+from repro_torch.kernels.binary_gemm import (_check_words,
+                                             binary_gemm_hd_plain,
+                                             words_aligned)
 
 THR_INT, THR_FLOAT, THR_SAMPLED = 0, 1, 2
 MAX_PASSES = 256  # csrc/picbnn.cuh kMaxPasses
 SMEM_LIMIT = 232448  # bytes of shared memory a block may use on an H100
-QUERY_TILE = 16  # csrc/mlp_block.cuh: a tile holds whole m16 tiles
-VOTE_TABLE_MAX = 2048  # csrc/mlp_block.cuh kVoteTab
-CAM_BQ = 32  # csrc/cam_search.cu kBq: queries a tile, else QUERY_TILE
-ROWS_SMEM_MIN = 32 * 1024  # csrc/mlp_block.cuh kRowsSmemMin
+VOTE_TABLE_MAX = 2048  # csrc/mlp_block.cuh and cam_search.cu kVoteTab
+# csrc/cam_search.cu: rows a stage (eight warps x one n8 tile), most
+# words of K a stage, ring stages, and the blocks an SM the grid aims for
+CAM_GROUP_ROWS, CAM_MAX_KC, CAM_STAGES, CAM_BLOCKS_PER_SM = 64, 32, 4, 4
+CAM_BARRIER_WORDS = 2 * CAM_STAGES  # an mbarrier a stage
+CAM_TMA_KC = 32  # words of K a TMA stage (one 128-byte swizzled row)
+# how a block reads its rows (csrc/cam_search.cu RowsMode): a ring of
+# 4-byte cp.async words, a ring of TMA boxes, or straight from global
+ROWS_WORDS, ROWS_TMA, ROWS_GLOBAL = "words", "tma", "global"
+SMS = 132  # streaming multiprocessors of an H100 SXM
 
 
 def normalize_thresholds(thresholds: torch.Tensor) -> torch.Tensor:
@@ -74,7 +89,8 @@ def vote_from_hd(hd: torch.Tensor, thresholds: torch.Tensor,
 
 
 def vote_table_len(kw_head: int, sampled: bool) -> int:
-    """Entries of the block's vote table (csrc/mlp_block.cuh `mlp_launch`):
+    """Entries of a block's vote table (csrc/mlp_block.cuh `mlp_launch`,
+    csrc/cam_search.cu `cam_vote_plan`):
     every distance of a kw_head-word head, at most VOTE_TABLE_MAX; none
     for sampled thresholds, which differ per (query, row)."""
     return 0 if sampled else min(WORD * kw_head + 1, VOTE_TABLE_MAX)
@@ -90,30 +106,56 @@ def vote_table(thresholds: torch.Tensor, n: int) -> torch.Tensor:
     return vote_from_hd(hd, thr)[0]
 
 
-def block_smem_bytes(kw0: int, later_kws, bq: int, vtab_n: int,
-                     row_shapes) -> tuple:
-    """Shared memory of the block program of kernels 2 and 3
-    (csrc/mlp_block.cuh `mlp_base_words`, picbnn.cuh `fill_tail`):
-    (bytes besides the rows, bytes of the rows).  Besides the rows: the
-    [P] schedule, the vote table, two input tiles of bq queries at a
-    stride of round8(kw0) + 4 words, and two activation buffers at the
-    widest later operand's.  The rows: each [n, kw] block padded to round8(n) rows at
-    round8(kw) + 4 words."""
-    def r8(n):
-        return -(-n // 8) * 8
+def cam_plan(b: int, c: int, kw: int, sampled: bool, aligned: bool = True,
+             sms: int = SMS) -> dict:
+    """Host twin of csrc/cam_search.cu `cam_vote_plan`.
 
-    ld_act = max([r8(kw) + 4 for kw in later_kws], default=0)
-    base = (MAX_PASSES + -(-vtab_n // 4) * 4
-            + 2 * bq * (r8(kw0) + 4 + ld_act))
-    rows = sum(r8(n) * (r8(kw) + 4) for n, kw in row_shapes)
-    return 4 * base, 4 * rows
+    How a block reads its rows (`mode`): where every block's rows are one
+    stage (c <= CAM_GROUP_ROWS, kw <= CAM_MAX_KC: the paper's heads)
+    straight from global memory; else through a ring of CAM_STAGES
+    stages of CAM_GROUP_ROWS rows, filled by TMA boxes of CAM_TMA_KC
+    words (128-byte swizzled; `aligned`: both operands' first words on 16
+    bytes, and Kw % 4 == 0) or by 4-byte cp.async words (kc + 4 words a
+    row).  bq queries a tile (16 where b <= 16, so no m16 tile is all
+    padding, else 32 where it fits), K in n_chunks chunks of kc words,
+    gpb row groups a block so that the grid (query tiles x row tiles)
+    holds about CAM_BLOCKS_PER_SM blocks an SM, the vote table's entries
+    (none for sampled thresholds) and the block's shared memory: the
+    ring's barriers, the schedule, the table, the query tile at a stride
+    of n_chunks * kc + 4 words and the ring (with 1 KB to align TMA
+    boxes).  Raises where a tile of 16 queries overflows SMEM_LIMIT."""
+    if min(b, c, kw, sms) <= 0:
+        raise ValueError(f"no plan for b={b} c={c} kw={kw} sms={sms}")
+    if c <= CAM_GROUP_ROWS and kw <= CAM_MAX_KC:
+        mode, n_chunks, kc, ring = ROWS_GLOBAL, 1, -(-kw // 8) * 8, 0
+    elif aligned and kw % 4 == 0:
+        mode, n_chunks, kc = ROWS_TMA, -(-kw // CAM_TMA_KC), CAM_TMA_KC
+        ring = 4 * CAM_STAGES * CAM_GROUP_ROWS * CAM_TMA_KC + 1024
+    else:
+        n_chunks = -(-kw // CAM_MAX_KC)
+        mode, kc = ROWS_WORDS, -(-(-(-kw // n_chunks)) // 8) * 8
+        ring = 4 * CAM_STAGES * CAM_GROUP_ROWS * (kc + 4)
+    ldq = n_chunks * kc + 4
+    vtab_n = vote_table_len(kw, sampled)
+    fixed = 4 * (CAM_BARRIER_WORDS + MAX_PASSES + -(-vtab_n // 4) * 4) + ring
+    bq = 16 if b <= 16 or fixed + 4 * 32 * ldq > SMEM_LIMIT else 32
+    smem = fixed + 4 * bq * ldq
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"Kw = {kw} words: a tile of 16 queries "
+                         "overflows shared memory")
+    n_qt, groups = -(-b // bq), -(-c // CAM_GROUP_ROWS)
+    target = CAM_BLOCKS_PER_SM * sms
+    gpb = max(1, -(-(groups * n_qt) // target))
+    return dict(bq=bq, kc=kc, n_chunks=n_chunks, gpb=gpb,
+                grid=(n_qt, -(-groups // gpb)), vtab_n=vtab_n, smem=smem,
+                mode=mode)
 
 
-def rows_in_smem(base: int, rows: int) -> bool:
-    """Whether the block program stages its rows in shared memory (else
-    the stage reads them from global memory): rows of ROWS_SMEM_MIN bytes
-    or more that fit beside the rest (`block_smem_bytes`)."""
-    return ROWS_SMEM_MIN <= rows and base + rows <= SMEM_LIMIT
+def uses_table(votes: int, vtab_n: int) -> bool:
+    """Whether a block of kernel 2 votes through its table (csrc/
+    cam_search.cu `use_table`): where it votes more (query, row) pairs
+    than the table has entries."""
+    return vtab_n > 0 and votes > vtab_n
 
 
 def cam_vote_plain(q_packed, rows_packed, thresholds, thr_samples=None):
@@ -192,14 +234,12 @@ def launch(q_packed: torch.Tensor, rows_packed: torch.Tensor,
     else:
         mode = THR_FLOAT if thr.is_floating_point() else THR_INT
         samples_ptr = None
-    vtab_n = vote_table_len(kw, thr_samples is not None)
-    if block_smem_bytes(kw, [], QUERY_TILE, vtab_n, [])[0] > SMEM_LIMIT:
-        raise ValueError(f"Kw = {kw} words: a tile of {QUERY_TILE} queries "
-                         "overflows shared memory")
     out = torch.empty((b, c), dtype=torch.int32, device=dev)
     if b == 0 or c == 0:
         return out
     q, rows = q_packed.contiguous(), rows_packed.contiguous()
+    # raises where a tile of 16 queries overflows shared memory
+    cam_plan(b, c, kw, thr_samples is not None, words_aligned(q, rows))
     lib = _build.library("cam_search")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -1,6 +1,6 @@
-// The FC/head stage on the 1-bit tensor cores, shared by kernels 2, 3
-// and 4 (cam_search.cu, fused_mlp.cu, fused_conv.cu; kernels 2 and 3
-// reach it through the block program of mlp_block.cuh).
+// The FC/head stage on the 1-bit tensor cores, shared by kernels 3 and 4
+// (fused_mlp.cu, fused_conv.cu; kernel 3 reaches it through the block
+// program of mlp_block.cuh).
 //
 // A block holds `mtiles` m16 tiles of queries' packed words in shared
 // memory.  Per FC layer a warp item is one m16 tile by NT n8 tiles of

@@ -58,7 +58,7 @@
 //    read as uint32) and written by lanes t = 0 (row g) and t = 1
 //    (row g + 8).
 //  * FC layers and head: the FC/head stage of fc_stage.cuh, shared with
-//    kernels 2 and 3: M = the block's 16 queries, N in n8 tiles (one per
+//    kernel 3: M = the block's 16 queries, N in n8 tiles (one per
 //    warp item), B read from global (L2) straight into fragments; FC
 //    sign bits are ORed into zeroed words in shared memory; the head
 //    votes with `vote_count`.
@@ -351,8 +351,8 @@ fused_conv_kernel(const uint32_t* __restrict__ x, const __grid_constant__ ConvNe
     return;
   }
 
-  // the FC layers and the head vote (fc_stage.cuh, shared with kernels 2
-  // and 3): one n8 tile a warp item, rows read from global memory
+  // the FC layers and the head vote (fc_stage.cuh, shared with kernel
+  // 3): one n8 tile a warp item, rows read from global memory
   fc_stage<MODE == kStage ? kThrInt : MODE, 1, true>(
       net.tail, nullptr, cur, ld_cur, nxt, ld_nxt, cur, ld_cur, 1, b0, b,
       thr_s, nullptr, 0, samples, p, out);

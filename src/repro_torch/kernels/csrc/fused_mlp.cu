@@ -20,8 +20,8 @@
 // the HG rows (about 2 us), and one tile's chain of K steps
 // (scripts/torch_mlp_tiles.py cuts the kernel after each phase).
 //
-// Design: the block program of mlp_block.cuh, shared with kernel 2, on
-// the FC/head stage of fc_stage.cuh, shared with kernel 4.  A block of 32
+// Design: the block program of mlp_block.cuh on the FC/head stage of
+// fc_stage.cuh, shared with kernel 4.  A block of 32
 // warps stages the shared schedule, a table of the vote at every head
 // distance (so a vote is one load, not P compares), and, where they take
 // 32 KB or more and fit (the HG MLP's 67 KB), every layer's rows and the

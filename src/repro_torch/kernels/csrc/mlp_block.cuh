@@ -1,5 +1,5 @@
-// The block program of kernels 2 and 3 (cam_search.cu, fused_mlp.cu) on
-// the FC/head stage of fc_stage.cuh.
+// The block program of kernel 3 (fused_mlp.cu) on the FC/head stage of
+// fc_stage.cuh.
 //
 // A block of 32 warps stages the shared [P] schedule, a table of the vote
 // at every head distance, so that a vote is one load instead of P
@@ -9,8 +9,7 @@
 // reads them from global memory).  It then walks its query tiles (bq
 // queries, bq / 16 m16 tiles; tile i of block j is j + i * gridDim),
 // fetching the next tile's input words with cp.async while the current
-// one runs `fc_stage`.  The grid is at most one wave.  Kernel 2 is the
-// same program with no hidden layers.
+// one runs `fc_stage`.  The grid is at most one wave.
 #pragma once
 
 #include <algorithm>
@@ -127,7 +126,7 @@ mlp_votes_kernel(const uint32_t* __restrict__ x,
 // Words of shared memory the block program needs besides the rows (the
 // schedule, the vote table, two input tiles and two activation
 // buffers);
-// kernels/cam_search.py `block_smem_words` is its host twin.
+// kernels/fused_mlp.py `block_smem_bytes` is its host twin.
 inline size_t mlp_base_words(const MlpNet& net) {
   return kMaxPasses + ((net.vtab_n + 3) & ~3) +
          2 * (size_t)net.bq * (net.ld_in + net.ld_act);

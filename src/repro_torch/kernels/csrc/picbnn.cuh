@@ -1,7 +1,7 @@
 // Definitions shared by the four PiC-BNN kernels (binary_gemm.cu,
 // cam_search.cu, fused_mlp.cu, fused_conv.cu): the threshold forms and the
 // vote (kernels 2, 3 and 4), and the FC/head description (`MlpTail`)
-// that the FC/head stage of fc_stage.cuh reads (kernels 2, 3 and 4).  The
+// that the FC/head stage of fc_stage.cuh reads (kernels 3 and 4).  The
 // tensor-core product is in bmma.cuh (kernels 1-4).  Each .cu file is
 // built on its own into a shared library with a plain C interface (see
 // kernels/_build.py).
@@ -28,9 +28,10 @@ enum ThrMode : int { kThrInt = 0, kThrFloat = 1, kThrSampled = 2 };
 // Algorithm-1 vote for one (query, row) Hamming distance:
 // #{t : hd <= T_t}.  `thr_s` is the shared schedule staged in shared
 // memory as raw 32-bit words; `samples` points at this pair's P sampled
-// thresholds (kThrSampled only).  The head stage of kernels 2, 3 and 4
-// (fc_stage.cuh `head_votes`) calls it, and kernels 2 and 3 tabulate it
-// over every distance of their head for the shared schedules.
+// thresholds (kThrSampled only).  The head stage of kernels 3 and 4
+// (fc_stage.cuh `head_votes`) and kernel 2 call it, and kernels 2 and 3
+// tabulate it over every distance of their head for the shared
+// schedules.
 template <int MODE>
 __device__ __forceinline__ int vote_count(int hd, const uint32_t* thr_s,
                                           const float* samples, int p) {
@@ -59,7 +60,7 @@ __device__ __forceinline__ void load_thresholds(uint32_t* thr_s,
 }
 
 // The FC layers and head of a net as the FC/head stage reads them
-// (fc_stage.cuh, shared by kernels 2, 3 and 4); `fill_tail` fills it from
+// (fc_stage.cuh, shared by kernels 3 and 4); `fill_tail` fills it from
 // the launcher's host arrays.
 constexpr int kMaxLayers = 8;  // hidden FC layers the stage carries
 
@@ -86,7 +87,7 @@ struct MlpTail {
 };
 
 // Fill an MlpTail from the launcher's host arrays.  Rows in shared
-// memory (kernels 2 and 3 where they fit) sit one layer after the other,
+// memory (kernel 3 where they fit) sit one layer after the other,
 // zero-padded to whole n8 tiles and 8-word K steps, at a row stride of
 // 4 mod 8 words.
 inline void fill_tail(MlpTail& t, int n_layers, const void* ws_v,

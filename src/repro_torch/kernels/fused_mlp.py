@@ -26,12 +26,11 @@ from repro_torch.core.binarize import WORD, pack_bits
 from repro_torch.kernels import _build
 from repro_torch.kernels.binary_gemm import _check_words, binary_gemm_hd_plain
 from repro_torch.kernels.cam_search import (
-    QUERY_TILE,
+    MAX_PASSES,
     SMEM_LIMIT,
     THR_FLOAT,
     THR_INT,
     THR_SAMPLED,
-    block_smem_bytes,
     check_samples,
     normalize_thresholds,
     vote_from_hd,
@@ -39,6 +38,8 @@ from repro_torch.kernels.cam_search import (
 )
 
 MAX_LAYERS = 8  # csrc/picbnn.cuh kMaxLayers
+QUERY_TILE = 16  # csrc/mlp_block.cuh: a tile holds whole m16 tiles
+ROWS_SMEM_MIN = 32 * 1024  # csrc/mlp_block.cuh kRowsSmemMin
 
 
 def _validate(x_packed, layer_ws, layer_cs, layer_n_bits, head_rows,
@@ -112,11 +113,37 @@ def sign_limit(n_bits: int, c) -> torch.Tensor:
     return (n_bits + torch.as_tensor(c).to(torch.int32)) >> 1
 
 
+def block_smem_bytes(kw0: int, later_kws, bq: int, vtab_n: int,
+                     row_shapes) -> tuple:
+    """Shared memory of kernel 3's block program
+    (csrc/mlp_block.cuh `mlp_base_words`, picbnn.cuh `fill_tail`):
+    (bytes besides the rows, bytes of the rows).  Besides the rows: the
+    [P] schedule, the vote table, two input tiles of bq queries at a
+    stride of round8(kw0) + 4 words, and two activation buffers at the
+    widest later operand's.  The rows: each [n, kw] block padded to round8(n) rows at
+    round8(kw) + 4 words."""
+    def r8(n):
+        return -(-n // 8) * 8
+
+    ld_act = max([r8(kw) + 4 for kw in later_kws], default=0)
+    base = (MAX_PASSES + -(-vtab_n // 4) * 4
+            + 2 * bq * (r8(kw0) + 4 + ld_act))
+    rows = sum(r8(n) * (r8(kw) + 4) for n, kw in row_shapes)
+    return 4 * base, 4 * rows
+
+
+def rows_in_smem(base: int, rows: int) -> bool:
+    """Whether the block program stages its rows in shared memory (else
+    the stage reads them from global memory): rows of ROWS_SMEM_MIN bytes
+    or more that fit beside the rest (`block_smem_bytes`)."""
+    return ROWS_SMEM_MIN <= rows and base + rows <= SMEM_LIMIT
+
+
 def mlp_smem_bytes(kw0: int, layer_ws, head_rows, bq: int,
                    sampled: bool) -> tuple:
     """Kernel 3's shared memory per block (csrc/mlp_block.cuh
     `mlp_launch`): (bytes besides the rows, bytes of every layer's rows
-    and the head's).  `cam_search.rows_in_smem` says where the rows go."""
+    and the head's).  `rows_in_smem` says where the rows go."""
     later = [w.shape[1] for w in layer_ws[1:]] + (
         [head_rows.shape[1]] if layer_ws else [])
     return block_smem_bytes(

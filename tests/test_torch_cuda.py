@@ -236,7 +236,7 @@ def test_fused_mlp_batch_edges_equal_plain(dev, net, b, form):
     args, samples = _mlp_args(sizes, bias, b, form, dev, seed=b)
     base, rows = fused_mlp.mlp_smem_bytes(args[0].shape[1], args[1],
                                           args[4], 32, samples is not None)
-    assert cam_search.rows_in_smem(base, rows) == (sizes[0] == 4096)
+    assert fused_mlp.rows_in_smem(base, rows) == (sizes[0] == 4096)
     _check_fused_mlp(args, bias, samples)
 
 
@@ -286,7 +286,7 @@ def test_fused_mlp_rows_from_global_equal_plain(dev, form):
     base, rows = fused_mlp.mlp_smem_bytes(args[0].shape[1], args[1],
                                           args[4], 32, samples is not None)
     assert base <= fused_mlp.SMEM_LIMIT < base + rows
-    assert not cam_search.rows_in_smem(base, rows)
+    assert not fused_mlp.rows_in_smem(base, rows)
     _check_fused_mlp(args, bias, samples)
 
 
@@ -325,17 +325,16 @@ def test_cam_vote_tile_edges_equal_plain(dev, c, kw, form):
 @pytest.mark.parametrize("c,kw", [(100, 80), (3, 900)])
 @pytest.mark.parametrize("form", ["int", "float", "sampled"])
 def test_cam_vote_wide_rows_equal_plain(dev, c, kw, form):
-    """Class rows of 38 KB, staged in shared memory; and rows of 900
-    words, where a tile holds 16 queries, not 32."""
+    """Class rows of 80 words (three K chunks of 32 through the ring) and
+    of 900 words (29 chunks, a 32-query tile of 116 KB in shared
+    memory)."""
     rng = np.random.default_rng(kw)
     b = 777
     q, rows = _packed(rng, b, 32 * kw, dev), _packed(rng, c, 32 * kw, dev)
     thr, samples = _thresholds(form, rng, b, c, 32 * kw, dev)
-    vt = cam_search.vote_table_len(kw, samples is not None)
-    base, nbytes = cam_search.block_smem_bytes(kw, [], cam_search.CAM_BQ, vt,
-                                               [(c, kw)])
-    assert cam_search.rows_in_smem(base, nbytes) == (kw == 80)
-    assert (base <= cam_search.SMEM_LIMIT) == (kw == 80)
+    plan = cam_search.cam_plan(b, c, kw, samples is not None)
+    assert plan["n_chunks"] == -(-kw // cam_search.CAM_MAX_KC)
+    assert plan["bq"] == 32 and plan["smem"] <= cam_search.SMEM_LIMIT
     before = cam_search.cam_vote.launches
     got = cam_search.cam_vote(q, rows, thr, thr_samples=samples)
     torch.cuda.synchronize()
@@ -888,7 +887,7 @@ def test_binary_gemm_mxu_edges_equal_plain(dev, m, k, n):
 @pytest.mark.parametrize("c,kw", [(128256, 64), (2048, 48), (50304, 80)])
 def test_cam_vote_at_vocab_scale_equals_plain(dev, b, c, kw):
     """Kernel 2 at LM-head widths: vocabularies past the vote table's
-    2,048 entries and one block walking every row."""
+    2,048 entries, on a grid of query tiles x row tiles."""
     from repro_torch.models.binary_lm import cam_thresholds
     from repro_torch import configs
 
@@ -902,6 +901,164 @@ def test_cam_vote_at_vocab_scale_equals_plain(dev, b, c, kw):
     thr = cam_thresholds(cfg, dev)
     assert torch.equal(cam_search.cam_vote(q, rows, thr),
                        cam_search.cam_vote_plain(q, rows, thr))
+
+
+@pytest.mark.parametrize("b", [1, 16, 17, 33])
+@pytest.mark.parametrize("form", ["int", "float"])
+def test_cam_vote_vocab_batches_equal_plain(dev, b, form):
+    """C = 128,256: one 16-query tile (B <= 16), a 32-query tile with a
+    live second m16 tile (17), and a second query tile (33); the int and
+    float schedules, through the table (B >= 16) and counted (B = 1)."""
+    rng = np.random.default_rng(b)
+    q, rows = _packed(rng, b, 2048, dev), _packed(rng, 128256, 2048, dev)
+    thr, _ = _thresholds(form, rng, b, 128256, 2048, dev)
+    before = cam_search.cam_vote.launches
+    got = cam_search.cam_vote(q, rows, thr)
+    torch.cuda.synchronize()
+    assert cam_search.cam_vote.launches == before + 1
+    assert torch.equal(got, cam_search.cam_vote_plain(q, rows, thr))
+
+
+def test_cam_vote_sampled_at_vocab_scale_equals_plain(dev):
+    """The sampled form at C = 50,304 rows of 80 words, B = 2: every vote
+    counts its own P samples."""
+    rng = np.random.default_rng(50304)
+    q, rows = _packed(rng, 2, 2560, dev), _packed(rng, 50304, 2560, dev)
+    thr, samples = _thresholds("sampled", rng, 2, 50304, 2560, dev)
+    assert torch.equal(cam_search.cam_vote(q, rows, thr, thr_samples=samples),
+                       cam_search.cam_vote_plain(q, rows, thr,
+                                                 thr_samples=samples))
+
+
+@pytest.mark.parametrize("c", [63, 64, 65, 255, 256, 257, 128255, 128257])
+@pytest.mark.parametrize("kw", [7, 64])
+@pytest.mark.parametrize("form", ["int", "sampled"])
+def test_cam_vote_row_tile_edges_equal_plain(dev, c, kw, form):
+    """C at one row group (64 rows) and one row tile (256 rows at the
+    vocabulary plan) +-1, and around C = 128,256; odd Kw takes the 4-byte
+    copies."""
+    rng = np.random.default_rng(c + kw)
+    b = 5
+    q, rows = _packed(rng, b, 32 * kw, dev), _packed(rng, c, 32 * kw, dev)
+    thr, samples = _thresholds(form, rng, b, c, 32 * kw, dev)
+    if c > 1000:
+        plan = cam_search.cam_plan(b, c, kw, samples is not None)
+        assert plan["gpb"] * cam_search.CAM_GROUP_ROWS == 256
+    assert torch.equal(cam_search.cam_vote(q, rows, thr, thr_samples=samples),
+                       cam_search.cam_vote_plain(q, rows, thr,
+                                                 thr_samples=samples))
+
+
+def test_cam_vote_views_off_16_bytes_equal_plain(dev):
+    """Query and row views whose first word is not on 16 bytes: the
+    kernel copies them word by word."""
+    rng = np.random.default_rng(3)
+    q_flat = _packed(rng, 5, 2048, dev).reshape(-1)
+    r_flat = _packed(rng, 3001, 2048, dev).reshape(-1)
+    thr, _ = _thresholds("int", rng, 4, 3000, 2048, dev)
+    for lo in (1, 2, 3):
+        q = q_flat[lo:lo + 4 * 64].view(4, 64)
+        rows = r_flat[lo:lo + 3000 * 64].view(3000, 64)
+        assert torch.equal(cam_search.cam_vote(q, rows, thr),
+                           cam_search.cam_vote_plain(q, rows, thr))
+
+
+def test_cam_plan_equals_launcher(dev):
+    """`cam_plan` is the host twin of the launcher's plan."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    lib = _build.library("cam_search")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    v = (ctypes.c_int * 8)()
+    modes = (cam_search.ROWS_WORDS, cam_search.ROWS_TMA,
+             cam_search.ROWS_GLOBAL)
+    for b in (1, 4, 16, 17, 32, 33, 777, 4096):
+        for c, kw in ((10, 4), (20, 6), (2048, 48), (128256, 64), (3, 900),
+                      (100, 80), (50304, 80)):
+            for sampled, aligned in ((0, 0), (0, 1), (1, 1)):
+                assert lib.cam_vote_plan(b, c, kw, sampled, aligned, sms,
+                                         v) == 0
+                p = cam_search.cam_plan(b, c, kw, bool(sampled),
+                                        bool(aligned), sms)
+                assert list(v) == [p["bq"], p["kc"], p["n_chunks"], p["gpb"],
+                                   p["grid"][1], p["vtab_n"], p["smem"],
+                                   modes.index(p["mode"])]
+
+
+# kernel 1 at each plan's edges: (M, N, Kw) around the large tile (from
+# three 32 x 128 blocks an SM on an H100: M at 32 x 132 +-1 with N = 256
+# +-1; M and N off the tile by one), split_k's (M <= 16, Kw >= 64) and
+# the 32 x 128 tile's, with Kw in {1, 7, 64, 225, 256}
+PLAN_EDGES = [(4224, 256, 64), (4225, 256, 64), (4225, 255, 64),
+              (16769, 257, 8), (8449, 511, 64), (8447, 513, 256),
+              (4097, 2049, 256), (4097, 1023, 225), (700, 300, 7),
+              (600, 300, 1), (16, 2048, 64), (17, 2048, 64), (1, 2049, 256),
+              (4, 255, 225), (16, 9, 7), (4, 2048, 63), (3, 5, 1)]
+
+
+@pytest.mark.parametrize("m,n,kw", PLAN_EDGES)
+def test_binary_gemm_plan_edges_equal_plain(dev, m, n, kw):
+    rng = np.random.default_rng(m + n + kw)
+    x, w = _packed(rng, m, 32 * kw, dev), _packed(rng, n, 32 * kw, dev)
+    before = binary_gemm.binary_gemm_hd.launches
+    got = binary_gemm.binary_gemm_hd(x, w)
+    torch.cuda.synchronize()
+    assert binary_gemm.binary_gemm_hd.launches == before + 1
+    assert torch.equal(got, binary_gemm.binary_gemm_hd_plain(x, w))
+
+
+@pytest.mark.parametrize("m,n,kw", [(16900, 512, 64), (4, 512, 256),
+                                    (64, 300, 64)])
+def test_binary_gemm_views_off_16_bytes_at_each_plan(dev, m, n, kw):
+    """Views off 16 bytes leave the large tile for the 32 x 128 one (its
+    granules reach past the view); split_k reads words."""
+    rng = np.random.default_rng(kw + m)
+    x_flat = _packed(rng, m + 1, 32 * kw, dev).reshape(-1)
+    w_flat = _packed(rng, n + 1, 32 * kw, dev).reshape(-1)
+    for lo in (0, 1, 3):  # words: the rows' first words move off 16 bytes
+        x = x_flat[lo:lo + m * kw].view(m, kw)
+        w = w_flat[lo:lo + n * kw].view(n, kw)
+        assert binary_gemm.words_aligned(x, w) == (lo == 0)
+        assert torch.equal(binary_gemm.binary_gemm_hd(x, w),
+                           binary_gemm.binary_gemm_hd_plain(x, w))
+
+
+@pytest.mark.parametrize("m,n,kw", [(17000, 300, 64), (8, 300, 256),
+                                    (100, 300, 7)])
+def test_binary_gemm_all_ones_and_zero_rows(dev, m, n, kw):
+    """All-ones against all-ones and all-zero rows (HD 0 and K) and words
+    of bit 31 alone, at each plan: the one-product identity with every
+    popcount at its extreme."""
+    rng = np.random.default_rng(m)
+    x, w = _packed(rng, m, 32 * kw, dev), _packed(rng, n, 32 * kw, dev)
+    for t in (x, w):
+        t[0], t[1], t[2] = -1, 0, -2 ** 31
+        t[-1] = -1
+    got = binary_gemm.binary_gemm_hd(x, w)
+    assert torch.equal(got, binary_gemm.binary_gemm_hd_plain(x, w))
+    assert int(got[0, 0]) == 0 and int(got[0, 1]) == 32 * kw
+    assert int(got[-1, -1]) == 0 and int(got[1, 0]) == 32 * kw
+
+
+def test_gemm_plan_equals_launcher(dev):
+    """`gemm_plan` is the host twin of the launcher's plan."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    lib = _build.library("binary_gemm")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    v = (ctypes.c_int * 4)()
+    names = (binary_gemm.TILE32X128, binary_gemm.LARGE, binary_gemm.SPLIT_K)
+    for m, n, kw in PLAN_EDGES + [(32768, 8192, 64), (32768, 2048, 256),
+                                  (4096, 128, 128), (4, 8192, 64)]:
+        for aligned in (0, 1):
+            assert lib.binary_gemm_plan(m, n, kw, aligned, sms, v) == 0
+            p = binary_gemm.gemm_plan(m, n, kw, bool(aligned), sms)
+            assert [names[v[0]], v[1], v[2], v[3]] == \
+                [p["plan"], *p["grid"], p["smem"]]
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b+binary-ffn+cam-head",

@@ -292,10 +292,10 @@ def test_vote_table_len_and_block_layout():
     base, rows = smem((4096, 128, 20))
     assert (base, rows) == (4 * (256 + 196 + 64 * (132 + 12)),
                             4 * (128 * 132 + 24 * 12))
-    assert cam_search.rows_in_smem(base, rows)
+    assert fused_mlp.rows_in_smem(base, rows)
     base, rows = smem((784, 128, 10))
-    assert rows < cam_search.ROWS_SMEM_MIN
-    assert not cam_search.rows_in_smem(base, rows)
+    assert rows < fused_mlp.ROWS_SMEM_MIN
+    assert not fused_mlp.rows_in_smem(base, rows)
     base, rows = smem((4096, 512, 20))
     assert base <= fused_mlp.SMEM_LIMIT < base + rows
-    assert not cam_search.rows_in_smem(base, rows)
+    assert not fused_mlp.rows_in_smem(base, rows)
