@@ -47,6 +47,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import keys as _keys
 from repro_torch.core.device_model import (
     TABLE1,
@@ -278,8 +279,9 @@ class SearchPhysics:
                  params: Optional[AnalogParams] = None) -> "SearchPhysics":
         """Physics for a deployed `ensemble.CAMEnsembleHead`, on the
         head's device."""
-        return cls.for_sweep(head.thresholds, noise, params).to(
-            head.thresholds.device)
+        with obs.span("physics.fit"):
+            return cls.for_sweep(head.thresholds, noise, params).to(
+                head.thresholds.device)
 
     def _base(self, lead_dims: int) -> torch.Tensor:
         return self.thresholds.reshape((self.n_passes,)
@@ -296,19 +298,20 @@ class SearchPhysics:
         broadcast — the bit-exact noiseless limit.
         """
         batch_shape = tuple(batch_shape)
-        base = self._base(len(batch_shape))
         shape = (self.n_passes,) + batch_shape + (n_rows,)
-        if generator is None or self.is_noiseless:
-            return base.expand(shape)
-        lead = (self.n_passes,) + (1,) * len(batch_shape) + (1,)
-        delta = _sample_deltas(
-            generator, self.noise,
-            m_logical=self.m_logical.reshape(lead),
-            dm_dvref=self.dm_dvref.reshape(lead),
-            global_shape=(self.n_passes,) + batch_shape,
-            n_rows=n_rows,
-        )
-        return base + delta
+        with obs.span("sampler"):
+            base = self._base(len(batch_shape))
+            if generator is None or self.is_noiseless:
+                return base.expand(shape)
+            lead = (self.n_passes,) + (1,) * len(batch_shape) + (1,)
+            delta = _sample_deltas(
+                generator, self.noise,
+                m_logical=self.m_logical.reshape(lead),
+                dm_dvref=self.dm_dvref.reshape(lead),
+                global_shape=(self.n_passes,) + batch_shape,
+                n_rows=n_rows,
+            )
+            return base + delta
 
     def sample_keyed(self, key_words: torch.Tensor, n_rows: int,
                      n_samples: int = 1) -> torch.Tensor:
@@ -321,16 +324,17 @@ class SearchPhysics:
                     and one strobe draw, sigma_hd per row.
         """
         b = key_words.shape[0]
-        base = self._base(2)
         shape = (self.n_passes, n_samples, b, n_rows)
-        if self.is_noiseless:
-            return base.expand(shape)
-        lead = (self.n_passes, 1, 1, 1)
-        z = [_keys.keyed_normals(key_words, n_samples, self.n_passes, n,
-                                 stream)
-             for n, stream in ((1, _keys.STREAM_VREF),
-                               (1, _keys.STREAM_TJITTER),
-                               (n_rows, _keys.STREAM_ROW))]
-        delta = combine_deltas(self.noise, self.m_logical.reshape(lead),
-                               self.dm_dvref.reshape(lead), *z)
-        return base + delta
+        with obs.span("sampler"):
+            base = self._base(2)
+            if self.is_noiseless:
+                return base.expand(shape)
+            lead = (self.n_passes, 1, 1, 1)
+            z = [_keys.keyed_normals(key_words, n_samples, self.n_passes, n,
+                                     stream)
+                 for n, stream in ((1, _keys.STREAM_VREF),
+                                   (1, _keys.STREAM_TJITTER),
+                                   (n_rows, _keys.STREAM_ROW))]
+            delta = combine_deltas(self.noise, self.m_logical.reshape(lead),
+                                   self.dm_dvref.reshape(lead), *z)
+            return base + delta

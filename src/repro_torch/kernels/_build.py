@@ -21,6 +21,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+from repro_torch import obs
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("binary_gemm", "cam_search", "fused_mlp", "fused_conv")
 NVCC_FLAGS = (
@@ -138,14 +140,16 @@ def library(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            build_all()
-            lib = ctypes.CDLL(str(build_dir() / f"{name}.so"))
-            for fn, argtypes in _SIGNATURES[name].items():
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
-            lib.picbnn_error_string.argtypes = [ctypes.c_int]
-            lib.picbnn_error_string.restype = ctypes.c_char_p
-            _libs[name] = lib
+            with obs.span("kernels.load"):
+                built = build_all()
+                obs.count(built=len(built))
+                lib = ctypes.CDLL(str(build_dir() / f"{name}.so"))
+                for fn, argtypes in _SIGNATURES[name].items():
+                    getattr(lib, fn).argtypes = argtypes
+                    getattr(lib, fn).restype = ctypes.c_int
+                lib.picbnn_error_string.argtypes = [ctypes.c_int]
+                lib.picbnn_error_string.restype = ctypes.c_char_p
+                _libs[name] = lib
     return lib
 
 

@@ -78,6 +78,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import binarize
 from repro_torch.core import keys as _keys
 from repro_torch.core.cam import query_with_bias
@@ -267,19 +268,39 @@ class CompiledPipeline:
         Returns int32 votes/predictions shaped per the spec, trimmed to the
         logical batch, on the pipeline's device.
         """
-        x = torch.as_tensor(x).to(self.device, torch.float32)
-        if x.ndim != 2 or x.shape[1] != self.n_in:
-            raise ValueError(f"expected x [B, {self.n_in}], got "
-                             f"{tuple(x.shape)}")
-        return self.run_packed(self._pack_input(x), spec, key=key, keys=keys)
+        with obs.span("run"):
+            x = torch.as_tensor(x).to(self.device, torch.float32)
+            if x.ndim != 2 or x.shape[1] != self.n_in:
+                raise ValueError(f"expected x [B, {self.n_in}], got "
+                                 f"{tuple(x.shape)}")
+            with obs.span("run.pack"):
+                x_packed = self._pack_input(x)
+            return self._run_packed(x_packed, spec, key, keys)
 
     def run_packed(self, x_packed: torch.Tensor, spec: InferenceSpec, *,
                    key=None, keys=None) -> torch.Tensor:
         """`run` for an already-packed input batch [B, Kw0] (int32; a CNN's
         is [B, side*side*Cw0], the channel-packed pixels).  The one place
         bucket padding, key validation and result trimming happen."""
+        with obs.span("run"):
+            return self._run_packed(x_packed, spec, key, keys)
+
+    def _run_packed(self, x_packed: torch.Tensor, spec: InferenceSpec,
+                    key, keys) -> torch.Tensor:
         prog = self.program(spec)  # physics capability check happens here
-        x_packed, b = self._bucketed(x_packed)
+        with obs.span("run.bucket"):
+            x_packed, b = self._bucketed(x_packed)
+            rng = self._rng(spec, key, keys, b, x_packed.shape[0])
+        if obs.enabled():
+            obs.count(rows=b, bucket=x_packed.shape[0])
+        with obs.span("run.program"):
+            out = prog(x_packed, *rng)
+        return self._trim(out, b, spec.batch_axis)
+
+    def _rng(self, spec: InferenceSpec, key, keys, b: int,
+             bp: int) -> tuple:
+        # the program's randomness argument after the checks: (), a batch
+        # generator, or the padded per-row key words
         if spec.needs_keys:
             if key is not None:
                 raise ValueError(
@@ -291,8 +312,8 @@ class CompiledPipeline:
                     f"{spec.describe()} needs per-request keys= "
                     "([B, 2] raw uint32 PRNG keys)"
                 )
-            out = prog(x_packed, self._each_keys(keys, b, x_packed.shape[0]))
-        elif spec.needs_key:
+            return (self._each_keys(keys, b, bp),)
+        if spec.needs_key:
             if keys is not None:
                 raise ValueError(
                     f"{spec.describe()} takes one batch-level key=, not "
@@ -303,15 +324,13 @@ class CompiledPipeline:
                     f"{spec.describe()} needs an explicit key= (each call "
                     "is one silicon realization)"
                 )
-            out = prog(x_packed, self._generator(key))
-        else:
-            if key is not None or keys is not None:
-                raise ValueError(
-                    f'{spec.describe()} is deterministic (noise="off"): '
-                    "it accepts neither key= nor keys="
-                )
-            out = prog(x_packed)
-        return self._trim(out, b, spec.batch_axis)
+            return (self._generator(key),)
+        if key is not None or keys is not None:
+            raise ValueError(
+                f'{spec.describe()} is deterministic (noise="off"): '
+                "it accepts neither key= nor keys="
+            )
+        return ()
 
     # ------------------------------------------------------------------
     # programs
@@ -336,16 +355,17 @@ class CompiledPipeline:
 
     def _head_distances(self, x_packed: torch.Tensor) -> torch.Tensor:
         # [B, C] int32: the one quantity every HD-once route compares
-        conv = self.conv
-        if conv is not None:  # the flattened conv features, then FC/head
-            x_packed = fused_conv.conv_stage_packed(
-                conv.maps(x_packed), conv.ws, conv.cs, conv.metas,
-                bias_cells=self.head.bias_cells if conv.head_direct else 0,
-                kw_q=(self.layer_ws[0] if self.layer_ws
-                      else self.head.cam.rows_packed).shape[1])
-        return head_hd(x_packed, self.layer_ws, self.layer_cs,
-                       self.layer_n_bits, self.head.cam.rows_packed,
-                       self.head.bias_cells)
+        with obs.span("head_distances"):
+            conv = self.conv
+            if conv is not None:  # the flattened conv features, then FC/head
+                x_packed = fused_conv.conv_stage_packed(
+                    conv.maps(x_packed), conv.ws, conv.cs, conv.metas,
+                    bias_cells=self.head.bias_cells if conv.head_direct else 0,
+                    kw_q=(self.layer_ws[0] if self.layer_ws
+                          else self.head.cam.rows_packed).shape[1])
+            return head_hd(x_packed, self.layer_ws, self.layer_cs,
+                           self.layer_n_bits, self.head.cam.rows_packed,
+                           self.head.bias_cells)
 
     def _staircase(self, x_packed: torch.Tensor) -> torch.Tensor:
         # the exact noiseless staircase: per-pass match indicators of the

@@ -6,6 +6,8 @@ result), the micro-batcher makes the same decisions as the reference's,
 the Table-II stats equal the reference's, and what waits for later
 slices raises."""
 
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -19,6 +21,7 @@ from repro.serve import scheduler as jsched
 from repro.serve.picbnn import BatchingPolicy as JPolicy
 from repro.serve.picbnn import PicBnnServer as JServer
 from repro_torch import deploy as tdep
+from repro_torch import obs
 from repro_torch.core import convnet as tconv
 from repro_torch import pipeline as tpipe
 from repro_torch.core import ensemble as tens
@@ -81,6 +84,42 @@ def test_mixed_models_never_mix_batches():
     pipes = {b: _pipe(b) for b in sorted(BANK_NETS)}
     _serve_and_check(["cpu", "cpu"], pipes,
                      BatchingPolicy(max_batch=32, max_wait_us=500))
+
+
+def test_dispatch_thread_records_its_own_run_spans():
+    """With spans on, each served batch's `run` is recorded on the
+    server's dispatch thread, its children nested under it and sharing its
+    call id."""
+    pipe, sizes = _pipe("2048x64")
+    x = pm1(np.random.default_rng(1), (20, sizes[0]))
+    server = PicBnnServer(BatchingPolicy(max_batch=8, max_wait_us=200),
+                          devices=["cpu"])
+    server.register("m", pipe)
+    obs.take()
+    obs.enable()
+    try:
+        with server:
+            dispatch = server._dispatch_t.native_id
+            got = server.submit_many("m", x).votes_all(timeout=60)
+    finally:
+        obs.disable()
+    records, dropped = obs.take()
+    np.testing.assert_array_equal(got, pipe.run(x, InferenceSpec()).numpy())
+    runs = {r.id: r for r in records if r.name == "run"}
+    assert dropped == 0 and len(runs) >= 3  # 20 rows in batches of <= 8
+    # the server hands `run` its batches padded to their buckets
+    assert all(r.counts["rows"] == r.counts["bucket"] for r in runs.values())
+    assert sum(r.counts["rows"] for r in runs.values()) >= 20
+    assert all(r.parent is None and r.call == r.id and r.thread == dispatch
+               for r in runs.values())
+    assert dispatch != threading.get_native_id()
+    by_id = {r.id: r for r in records}
+    for r in records:
+        if r.name != "run":
+            assert r.call in runs and r.thread == dispatch
+            assert by_id[r.parent].call == r.call
+    assert {r.name for r in records} == {"run", "run.pack", "run.bucket",
+                                         "run.program"}
 
 
 def test_queue_full_and_drain_on_close():
