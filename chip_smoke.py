@@ -8,8 +8,9 @@ exit 0):
 1. Print the card's name and power limit (nvidia-smi), build the CUDA
    kernels from the sources in this checkout, timed, with ptxas' report
    (registers, spills, shared memory) and each library's tensor-core
-   instructions in its SASS (`cuobjdump -sass`: IMMA, BMMA); all four
-   libraries must hold some.
+   instructions in its SASS (`cuobjdump -sass`: IMMA, BMMA); the four
+   kernel libraries must hold some (the keyed sampler's, the fifth, holds
+   none: it draws, it does not multiply).
 2. Each kernel at the main path's shapes against its plain PyTorch
    version on the card: `torch.equal` is required.  Kernels 1-3 at the
    paper's MNIST 784-128-10 and Hand-Gesture 4096-128-20 MLPs, kernel 4
@@ -58,15 +59,19 @@ exit 0):
    the CNNs), noisy cumulative at B = 100, an HG MLP with a calibrated
    (float) head, NOISELESS pipelines on every noisy spec, and one server
    with a silicon MLP and a silicon CNN answering 400 keyed requests
-   each.  Kernels 1, 3, 4 and the stage entry must have launched.
+   each.  Kernels 1, 3, 4, the stage entry and the keyed sampler must
+   have launched.
    Checks: batch votes equal the CPU pipeline's distances against the
    samples replayed from the generator state (the CNNs at B = 4096
    against the card's own distances), per-request votes equal the card's
    own compare of its keyed samples (card-vs-CPU agreement printed),
    NOISELESS equals the noiseless votes, calibrated card equals CPU,
    served equals direct.  Then the sampled-form kernels and the sampler
-   timed at B = 4096 and `run()` per silicon spec, in a `{"silicon": ...}`
-   line.
+   timed at B = 4096 and `run()` per silicon spec, and the keyed
+   sampler's kernel (`keyed_thresholds`) against its plain version
+   (`torch.equal`) at the HG head (P = 33, 20 rows) at B = 32,768 (the
+   benchmark's silicon cells) and 4096: kernel, call and plain ms beside
+   its bound, in a `{"silicon": ...}` line.
 6. Training, with every launch counter set to 0 just before its path:
    synthetic data (`data.synthetic`, 8,000 train / 1,000 test images a
    task); the MNIST 784-128-10 and HG 4096-128-20 MLPs trained on the
@@ -258,7 +263,15 @@ SOURCES = {
     "fused_mlp_votes": "src/repro_torch/kernels/csrc/fused_mlp.cu",
     "fused_conv_votes": "src/repro_torch/kernels/csrc/fused_conv.cu",
     "conv_stage_packed": "src/repro_torch/kernels/csrc/fused_conv.cu",
+    "keyed_thresholds": "src/repro_torch/kernels/csrc/keyed_sampler.cu",
 }
+# the keyed sampler's work a normal (csrc/keyed_sampler.cu): Threefry-2x32-20
+# in 32-bit ALU operations (20 rounds of add, funnel-shift, xor and the key
+# injections), and an estimate of Box-Muller's float64 operations (one
+# libdevice log, cos and sqrt)
+THREEFRY_ALU_OPS = 80
+BOX_MULLER_FP64_OPS = 80
+FP64_PER_CLK_SM = 64  # float64 FMA lanes, compute capability 9.0
 
 
 def require(cond: bool, what: str) -> None:
@@ -642,6 +655,53 @@ def sampled_form_rows(pipe, x, gen, card, mid: str, report: dict) -> None:
           f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_route']})")
 
 
+def keyed_sampler_rows(pipe, card: "Card", batches, seed: int) -> dict:
+    """The keyed sampler's kernel (`keyed_thresholds`) against its plain
+    version at `pipe`'s head (P passes, one row a class, one sample):
+    `torch.equal` required, then device ms a launch (CUDA-graph replay),
+    call ms and the plain version's device ms, beside the bound: the
+    larger of the Threefry ALU operations, the float64 operations (each at
+    64 lanes a clock an SM) and the output's bytes."""
+    from repro_torch.core.keys import as_key_words
+    from repro_torch.kernels import keyed_sampler as ks
+
+    ph, n = pipe.physics, pipe.n_classes
+    fields = (ph.thresholds, ph.m_logical, ph.dm_dvref)
+    rows = {}
+    for b in batches:
+        k = np.random.default_rng(seed + b).integers(
+            0, 2 ** 32, (b, 2), dtype=np.uint64).astype(np.uint32)
+        kw = as_key_words(k, pipe.device)
+
+        def kernel():
+            return ks.keyed_thresholds(kw, *fields, ph.noise, n)
+
+        def plain():
+            return ks.keyed_thresholds_plain(kw, *fields, ph.noise, n)
+
+        require(torch.equal(kernel(), plain()),
+                f"keyed sampler B={b}: kernel != plain")
+        normals = ph.n_passes * b * (n + 2)
+        clk = card.sms * card.clock_hz
+        bound = {"alu": normals * THREEFRY_ALU_OPS / ALU_PER_CLK_SM / clk,
+                 "fp64": normals * BOX_MULLER_FP64_OPS / FP64_PER_CLK_SM
+                 / clk,
+                 "bytes": (ph.n_passes * b * n * 4 + b * 16)
+                 / MEM_BYTES_PER_S}
+        by = max(bound, key=bound.get)
+        rows[f"[{ph.n_passes},1,{b},{n}]"] = row = dict(
+            ms=device_ms(kernel, iters=20, replays=5),
+            call_ms=time_ms(kernel, 20),
+            plain_ms=device_ms(plain, iters=2, replays=2),
+            bound_ms=bound[by] * 1e3, bound_by=by,
+            bound_routes={k: v * 1e3 for k, v in bound.items()})
+        print(f"  keyed sampler [{ph.n_passes},1,{b},{n}]: kernel "
+              f"{row['ms']} ms (call {row['call_ms']:.4f} ms), plain "
+              f"{row['plain_ms']} ms, bound {row['bound_ms']:.4f} ms "
+              f"({by})")
+    return rows
+
+
 def sampler_ms(pipe, b: int) -> dict:
     """Device time of the batch sampler (`SearchPhysics.sample` [P, B, C]
     and the move to the kernel's [B, C, P] layout) at batch b: CUDA-graph
@@ -681,6 +741,7 @@ def silicon_phase(dev, b_main: int, batches, card, smi: str, models: dict,
     from repro_torch.configs.paper_cnn import build_cnn_pipeline
     from repro_torch.core.device_model import NOISELESS, SILICON
     from repro_torch.core.ensemble import EnsembleConfig
+    from repro_torch.kernels.keyed_sampler import keyed_thresholds
     from repro_torch.pipeline import compile_pipeline, next_bucket
     from repro_torch.serve.picbnn import BatchingPolicy, PicBnnServer
     from repro_torch.spec import InferenceSpec
@@ -728,7 +789,7 @@ def silicon_phase(dev, b_main: int, batches, card, smi: str, models: dict,
     gen = torch.Generator(dev).manual_seed(SEED + 12)
 
     # --------------------------------- the silicon path, counts from 0
-    for fn in counted:
+    for fn in (*counted, keyed_thresholds):
         fn.launches = 0
     out, states = {}, {}
     for mid, m in every.items():
@@ -770,9 +831,10 @@ def silicon_phase(dev, b_main: int, batches, card, smi: str, models: dict,
                  bursts[sid].votes_all(timeout=120)])
     if on_card:
         torch.cuda.synchronize()
-    launches = {fn.__name__: fn.launches for fn in counted}
+    launches = {fn.__name__: fn.launches
+                for fn in (*counted, keyed_thresholds)}
     print(f"silicon path: launches {launches}")
-    for fn in counted:
+    for fn in (*counted, keyed_thresholds):
         if fn.__name__ != "cam_vote":
             require(launches[fn.__name__] > 0 or not on_card,
                     f"{fn.__name__} was not launched on the silicon path")
@@ -896,6 +958,10 @@ def silicon_phase(dev, b_main: int, batches, card, smi: str, models: dict,
                 call_ms=time_ms(draw, 5))
             print(f"  keyed sampler {mid:5s} mc={mc}: device {row['ms']} ms "
                   f"(call {row['call_ms']:.4f} ms)")
+    # the kernel alone at the benchmark's silicon cells' shape
+    keyed_kernel = keyed_sampler_rows(
+        every["hg"]["si_gpu"], card,
+        (32768, b_main) if on_card else (b_main,), SEED + 13)
     split = profile_split(lambda: every["hg"]["si_gpu"].run(
         xs["hg"], specs["per_request"], keys=keys), 5)
     print(f"  profile hg B={b_main} run() per_request: "
@@ -904,7 +970,8 @@ def silicon_phase(dev, b_main: int, batches, card, smi: str, models: dict,
           f"{len(split['kernels'])} kernel names")
     split["kernels"] = dict(list(split["kernels"].items())[:8])
     return dict(launches=launches, e2e=e2e, sampler=sampled,
-                keyed_sampler=keyed, agreement=agree,
+                keyed_sampler=keyed, keyed_kernel=keyed_kernel,
+                agreement=agree,
                 profile={f"hg/B={b_main}/per_request": split}, card=smi)
 
 

@@ -48,7 +48,6 @@ import numpy as np
 import torch
 
 from repro_torch import obs
-from repro_torch.core import keys as _keys
 from repro_torch.core.device_model import (
     TABLE1,
     AnalogParams,
@@ -322,19 +321,21 @@ class SearchPhysics:
                     key alone (counter-based, `core/keys.py`): the serving
                     determinism contract.  Per (sample, pass, b) one V_ref
                     and one strobe draw, sigma_hd per row.
+        On the card one launch of the keyed sampler kernel draws them
+        (`kernels/keyed_sampler.py`; the span counts kernel=1), on the CPU
+        its plain version (kernel=0).
         """
+        # local: core stays import-light
+        from repro_torch.kernels import keyed_sampler
+
         b = key_words.shape[0]
         shape = (self.n_passes, n_samples, b, n_rows)
         with obs.span("sampler"):
-            base = self._base(2)
             if self.is_noiseless:
-                return base.expand(shape)
-            lead = (self.n_passes, 1, 1, 1)
-            z = [_keys.keyed_normals(key_words, n_samples, self.n_passes, n,
-                                     stream)
-                 for n, stream in ((1, _keys.STREAM_VREF),
-                                   (1, _keys.STREAM_TJITTER),
-                                   (n_rows, _keys.STREAM_ROW))]
-            delta = combine_deltas(self.noise, self.m_logical.reshape(lead),
-                                   self.dm_dvref.reshape(lead), *z)
-            return base + delta
+                return self._base(2).expand(shape)
+            out = keyed_sampler.keyed_thresholds(
+                key_words, self.thresholds, self.m_logical, self.dm_dvref,
+                self.noise, n_rows, n_samples)
+            if obs.enabled():
+                obs.count(kernel=int(key_words.is_cuda))
+            return out

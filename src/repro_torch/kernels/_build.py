@@ -24,7 +24,8 @@ from pathlib import Path
 from repro_torch import obs
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("binary_gemm", "cam_search", "fused_mlp", "fused_conv")
+SOURCES = ("binary_gemm", "cam_search", "fused_mlp", "fused_conv",
+           "keyed_sampler")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -32,6 +33,7 @@ NVCC_FLAGS = (
 
 _VOID_P = ctypes.c_void_p
 _INT = ctypes.c_int
+_FLOAT = ctypes.c_float
 # C signatures of the launchers: every pointer and the stream as void*
 _SIGNATURES = {
     "binary_gemm": {
@@ -53,6 +55,11 @@ _SIGNATURES = {
         "fused_conv_launch": (
             [_VOID_P, _INT, _INT] + [_VOID_P] * 3 + [_INT] + [_VOID_P] * 6
             + [_INT] * 7 + [_VOID_P, _INT, _INT] + [_VOID_P] * 3
+        ),
+    },
+    "keyed_sampler": {
+        "keyed_thresholds_launch": (
+            [_VOID_P] * 4 + [_FLOAT] * 4 + [_INT] * 4 + [_VOID_P] * 2
         ),
     },
 }

@@ -4,7 +4,7 @@
 // that the FC/head stage of fc_stage.cuh reads (kernels 3 and 4).  The
 // tensor-core product is in bmma.cuh (kernels 1-4).  Each .cu file is
 // built on its own into a shared library with a plain C interface (see
-// kernels/_build.py).
+// kernels/_build.py); keyed_sampler.cu takes only the error string.
 //
 // Packed words arrive as int32 tensors holding the bit pattern of
 // little-endian uint32 words; the kernels read them as uint32.

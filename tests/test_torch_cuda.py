@@ -14,13 +14,16 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import obs
 from repro_torch import pipeline as tpipe
 from repro_torch.configs.paper_cnn import build_cnn_pipeline
-from repro_torch.core import binarize, bnn, cam, convnet, ensemble, mapping
+from repro_torch.core import (binarize, bnn, cam, convnet, ensemble,
+                              mapping, physics)
+from repro_torch.core import keys as keyfields
 from repro_torch.core.device_model import NOISELESS, SILICON
 from repro_torch.data import synthetic
 from repro_torch.kernels import (binary_gemm, cam_search, fused_conv,
-                                 fused_mlp, ops)
+                                 fused_mlp, keyed_sampler, ops)
 from repro_torch.serve.picbnn import BatchingPolicy, PicBnnServer
 from repro_torch.spec import InferenceSpec
 
@@ -732,9 +735,11 @@ def test_silicon_hd_once_specs_on_card(dev, name):
     keys = np.random.default_rng(1).integers(0, 2 ** 32, (300, 2),
                                              dtype=np.uint64).astype(np.uint32)
     spec = InferenceSpec(noise="per_request", mc_samples=4)
-    before = binary_gemm.binary_gemm_hd.launches
+    before = (binary_gemm.binary_gemm_hd.launches,
+              keyed_sampler.keyed_thresholds.launches)
     got = card.run(x, spec, keys=keys)
-    assert binary_gemm.binary_gemm_hd.launches > before
+    assert binary_gemm.binary_gemm_hd.launches > before[0]
+    assert keyed_sampler.keyed_thresholds.launches == before[1] + 1
     xp, _ = card._bucketed(card._pack_input(torch.from_numpy(x).to(dev)))
     kw = card._each_keys(keys, 300, xp.shape[0])
     t = card.physics.sample_keyed(kw, card.n_classes, 4)
@@ -771,6 +776,108 @@ def test_served_silicon_on_card_equals_direct(dev):
             direct[:30])
         np.testing.assert_array_equal(burst.votes_all(timeout=60),
                                       direct[30:])
+
+
+# the keyed sampler's kernel against its plain version on the card:
+# (passes, samples, batch, rows) and the physics' noise
+ONE_SIGMA = {"sigma_hd": 2.0, "sigma_vref": 0.05, "sigma_tjitter": 0.1,
+             "temp_drift_hd": 3.0}
+ZERO = dataclasses.replace(SILICON, sigma_hd=0.0, sigma_vref=0.0,
+                           sigma_tjitter=0.0)
+KEYED_NOISES = {"silicon": SILICON,
+                "silicon+drift": dataclasses.replace(SILICON,
+                                                     temp_drift_hd=-1.5),
+                "wide_jitter": dataclasses.replace(SILICON,
+                                                   sigma_tjitter=0.6),
+                **{n: dataclasses.replace(ZERO, **{n: v})
+                   for n, v in ONE_SIGMA.items()}}
+KEYED_SHAPES = [(33, 1, 32768, 20), (33, 4, 300, 10), (33, 1, 1, 20),
+                (33, 1, 17, 10), (33, 2, 129, 100), (9, 3, 250, 33)]
+
+
+def _keyed_physics(noise, passes=33, calibrated=False, dev=None):
+    if passes == 33:
+        rng = np.random.default_rng(4)
+        layer = bnn.FoldedLayer(
+            weights_pm1=rng.choice([-1, 1], (20, 128)).astype(np.int8),
+            c=rng.integers(-30, 31, 20))
+        head = ensemble.build_head(
+            layer, ensemble.EnsembleConfig(calibrated=calibrated))
+        return physics.SearchPhysics.for_head(head, noise).to(dev)
+    sweep = 60.0 + np.arange(passes, dtype=np.float32) * 2
+    return physics.SearchPhysics.for_sweep(sweep, noise).to(dev)
+
+
+def _keyed_words(b, dev, seed=0):
+    k = np.random.default_rng(seed).integers(0, 2 ** 32, (b, 2),
+                                             dtype=np.uint64)
+    return keyfields.as_key_words(k.astype(np.uint32), dev)
+
+
+@pytest.mark.parametrize("shape", KEYED_SHAPES)
+def test_keyed_sampler_equals_plain_at_each_shape(dev, shape):
+    p, s, b, n = shape
+    ph = _keyed_physics(SILICON, p, dev=dev)
+    kw = _keyed_words(b, dev, seed=b)
+    fields = (ph.thresholds, ph.m_logical, ph.dm_dvref)
+    before = keyed_sampler.keyed_thresholds.launches
+    got = keyed_sampler.keyed_thresholds(kw, *fields, ph.noise, n, s)
+    assert keyed_sampler.keyed_thresholds.launches == before + 1
+    assert got.shape == (p, s, b, n) and got.is_cuda
+    want = keyed_sampler.keyed_thresholds_plain(kw, *fields, ph.noise, n, s)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("noise", sorted(KEYED_NOISES))
+@pytest.mark.parametrize("calibrated", [False, True])
+def test_keyed_sampler_equals_plain_for_each_sigma(dev, noise, calibrated):
+    ph = _keyed_physics(KEYED_NOISES[noise], calibrated=calibrated, dev=dev)
+    kw = _keyed_words(4097, dev, seed=3)
+    fields = (ph.thresholds, ph.m_logical, ph.dm_dvref)
+    got = ph.sample_keyed(kw, 20, 2)
+    assert torch.equal(got, keyed_sampler.keyed_thresholds_plain(
+        kw, *fields, ph.noise, 20, 2))
+    # the card's draws against the CPU's: the same words, and float64
+    # transcendentals that may differ in the last bit
+    cpu = ph.to("cpu").sample_keyed(kw.cpu(), 20, 2)
+    assert (got.cpu() == cpu).float().mean() > 0.999
+
+
+def test_keyed_sampler_span_counts_the_kernel(dev):
+    ph = _keyed_physics(SILICON, dev=dev)
+    obs.take()
+    obs.enable()
+    try:
+        ph.sample_keyed(_keyed_words(8, dev), 20, 1)
+        records, _ = obs.take()
+    finally:
+        obs.disable()
+        obs.take()
+    assert [(r.name, r.counts) for r in records] == [
+        ("sampler", {"kernel": 1})]
+
+
+def test_keyed_sampler_guards_on_card(dev):
+    ph = _keyed_physics(SILICON, dev=dev)
+    kw = _keyed_words(4, dev)
+    fields = (ph.thresholds, ph.m_logical, ph.dm_dvref)
+    with pytest.raises(ValueError, match="on cpu"):
+        keyed_sampler.keyed_thresholds(kw, ph.thresholds.cpu(), *fields[1:],
+                                       ph.noise, 20)
+    with pytest.raises(TypeError):
+        keyed_sampler.keyed_thresholds(kw.to(torch.int32), *fields,
+                                       ph.noise, 20)
+    # an empty batch launches nothing and counts nothing
+    before = keyed_sampler.keyed_thresholds.launches
+    out = keyed_sampler.keyed_thresholds(kw[:0], *fields, ph.noise, 20)
+    assert out.shape == (33, 1, 0, 20)
+    assert keyed_sampler.keyed_thresholds.launches == before
+    # a non-contiguous key view draws what its contiguous copy draws
+    wide = _keyed_words(10, dev, seed=5).repeat(1, 2)[:, 1:3]
+    assert torch.equal(
+        keyed_sampler.keyed_thresholds(wide, *fields, ph.noise, 20),
+        keyed_sampler.keyed_thresholds(wide.contiguous(), *fields,
+                                       ph.noise, 20))
 
 
 # ---------------------------------------------------------------------------
