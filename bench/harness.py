@@ -1,18 +1,23 @@
 """The benchmark's harness: one cell, one seed, one run.
 
-Everything that belongs to a cell is data found by name: the workload's
+Everything that belongs to a cell is found by name: the workload's
 entry in `BENCHMARK.json` names its configuration (`bench/configs/`) and
 its traffic; `bench/workloads/<cell>.json` holds the traffic's parameters;
-each per-layer metric is read by `bench/metrics/<metric>.py`, a module
-with `read(ctx) -> float | None`.  Nothing here knows a cell by name.
+the configuration's `model` names its kind, `bench/kinds/<model>.py`,
+which makes the inputs and the system under test, gives the timed call,
+its output and the units it counts, and checks the outputs against the
+plain reference; each per-layer metric is read by
+`bench/metrics/<metric>.py`, a module with `read(ctx) -> float | None`.
+Nothing here knows a cell or a kind of model by name.
 
-A run: make the weights, the row pool and the keys from the seed; build
-the system under test through its normal entry point; warm the cell's one
-spec and bucket (`setup_s` ends here, counted from the process's start);
-run the closed loop for the window; with `--trace 1`, trace a short
-stretch of the same loop and run the per-layer readers; read the memory
-peak; free the program; check a sample of the window's answers against
-the plain reference; refuse to report if JAX was loaded.
+A run: make the weights and the input pool from the seed, and build the
+system under test through its normal entry point (the kind's `make`);
+warm the cell's calls (`setup_s` ends here, counted from the process's
+start); run the closed loop for the window; with `--trace 1`, trace a
+short stretch of the same loop and run the per-layer readers; read the
+memory peak; free the program; check a sample of the window's outputs
+against the plain reference (the kind's `compare`); refuse to report if
+JAX was loaded.
 """
 
 from __future__ import annotations
@@ -40,7 +45,8 @@ def load_benchmark(root: Path = ROOT) -> dict:
 
 @dataclasses.dataclass
 class Cell:
-    """One workload of the benchmark, with its data files read."""
+    """One workload of the benchmark, with its data files read and its
+    model kind loaded."""
 
     name: str
     chips: int
@@ -48,6 +54,7 @@ class Cell:
     traffic: dict
     end_to_end: list
     per_layer: list
+    kind: object  # the module bench/kinds/<cfg["model"]>.py
 
 
 def _for(metric: dict, cell: str) -> bool:
@@ -55,19 +62,28 @@ def _for(metric: dict, cell: str) -> bool:
 
 
 def find_cell(bench: dict, name: str, root: Path = ROOT) -> Cell:
-    """The workload `name` of `bench`, its configuration and traffic."""
+    """The workload `name` of `bench`, its configuration, traffic and
+    kind."""
     entry = next((w for w in bench["workloads"] if w["name"] == name), None)
     if entry is None:
         raise KeyError(f"no workload {name!r} in BENCHMARK.json")
     conf = next(c for c in bench["configs"] if c["name"] == entry["config"])
+    cfg = json.loads((root / conf["file"]).read_text())
     return Cell(
-        name=name, chips=entry["chips"],
-        cfg=json.loads((root / conf["file"]).read_text()),
+        name=name, chips=entry["chips"], cfg=cfg,
         traffic=json.loads(
             (root / "bench" / "workloads" / f"{name}.json").read_text()),
         end_to_end=[m for m in bench["end_to_end"] if _for(m, name)],
         per_layer=[m for m in bench["per_layer"] if _for(m, name)],
+        kind=load_kind(cfg["model"], root),
     )
+
+
+def _load(path: Path, module_name: str):
+    spec = importlib.util.spec_from_file_location(module_name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def load_metric(name: str, root: Path = ROOT):
@@ -75,27 +91,47 @@ def load_metric(name: str, root: Path = ROOT):
     the metric reads a layer inside `run`, its `wrap(setup)`, which names
     the program's call into that layer as `(span, owner, attribute)` or
     gives None."""
-    path = root / "bench" / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(
-        f"bench_metric_{name.replace('.', '_')}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    return _load(root / "bench" / "metrics" / f"{name}.py",
+                 f"bench_metric_{name.replace('.', '_')}")
+
+
+def load_kind(name: str, root: Path = ROOT):
+    """The module `bench/kinds/<name>.py`, `name` a configuration's
+    `model`.  It gives:
+
+    - `make(cfg, traffic, gen, device, log)`: the `Setup` fields `net`,
+      `rows` (the input pool [pool, B, ...]), `keys` (or None), `noise`,
+      `spec` and `pipe` (the system under test, built through its normal
+      entry point), drawn from the generator `gen`;
+    - `call(setup)`: the timed call `(inputs, keys) -> out`;
+    - `output(setup)`: (shape, dtype) of one call's `out`;
+    - `units(setup)`: what one call counts toward `inf_per_s`,
+      `attempted` and `failed`;
+    - `compare(setup, kept)`: the numbers compared, `{name: {"value",
+      "limit", "rule"}}`, limits from the workload's `limits`
+      (`check.compare` adds `calls_compared`);
+    - `control_call(setup, control)`: the reference with one departure,
+      shaped as the call, to stand in its place;
+    - `step_work(setup)`: `roofline.Work` of one call's whole step."""
+    return _load(root / "bench" / "kinds" / f"{name}.py",
+                 f"bench_kind_{name.replace('.', '_')}")
 
 
 @dataclasses.dataclass
 class Setup:
-    """What a run made from its seed, and the system built from it."""
+    """What a run made from its seed, and the system built from it; the
+    fields from `net` to `pipe` are the kind's (`load_kind`)."""
 
     cfg: dict
     traffic: dict
     device: object  # torch.device
-    net: dict  # the weights, on the CPU (`model.make_net`)
-    rows: object  # [pool, B, n_in] float32 on the device
-    keys: object  # [key batches, B, 2] int64 key words, or None
-    noise: dict | None  # the silicon model's sigmas, or None
-    spec: object  # the cell's InferenceSpec
-    pipe: object  # the CompiledPipeline under test
+    net: object  # the weights the reference reads
+    rows: object  # the input pool [pool, B, ...] on the device
+    keys: object  # [key batches, B, ...] per-row key words, or None
+    noise: object  # the noise model the reference follows, or None
+    spec: object  # what the timed call asks of the system
+    pipe: object  # the system under test
+    kind: object  # the module bench/kinds/<model>.py
 
 
 @dataclasses.dataclass
@@ -106,6 +142,7 @@ class Context:
     spans: dict  # the window's host-clock spans: {name: [seconds]}
     window: object  # loop.Stats of the window
     profile: object  # trace.Profile, or None off the card
+    units: int  # what one call counts toward inf_per_s (`kind.units`)
 
     @property
     def batch(self) -> int:
@@ -113,35 +150,19 @@ class Context:
 
 
 def make_setup(cell: Cell, seed: int, device, log) -> Setup:
-    """Weights, pool and keys from the seed; the pipeline built on them."""
+    """Weights and inputs from the seed, and the system built on them:
+    the cell's kind draws them from one generator on `device`."""
     import torch
 
-    from bench import model
-    from repro_torch.spec import InferenceSpec
-
-    t = cell.traffic
-    spec = InferenceSpec(**t["spec"])
-    t0 = time.perf_counter()
     gen = torch.Generator(device).manual_seed(seed)
-    net = model.make_net(cell.cfg, gen)
-    rows = model.make_rows(cell.cfg, gen, t["pool_batches"], t["batch"])
-    keys = (model.make_keys(gen, t["key_batches"], t["batch"])
-            if spec.needs_keys else None)
-    t1 = time.perf_counter()
-    noise = t.get("noise_model")
-    pipe = model.build_pipeline(cell.cfg, net, noise, device)
-    log(f"set-up: weights, rows and keys {t1 - t0:.3f} s, "
-        f"compile_pipeline {time.perf_counter() - t1:.3f} s")
-    return Setup(cell.cfg, t, torch.device(device), net, rows, keys, noise,
-                 spec, pipe)
+    made = cell.kind.make(cell.cfg, cell.traffic, gen, device, log)
+    return Setup(cell.cfg, cell.traffic, torch.device(device),
+                 kind=cell.kind, **made)
 
 
 def program_call(setup: Setup):
-    """The timed call: `run` through the system's entry point."""
-    pipe, spec = setup.pipe, setup.spec
-    if spec.needs_keys:
-        return lambda rows, keys: pipe.run(rows, spec, keys=keys)
-    return lambda rows, keys: pipe.run(rows, spec)
+    """The timed call through the system's entry point (`kind.call`)."""
+    return setup.kind.call(setup)
 
 
 def forbidden_modules() -> list:
@@ -177,12 +198,11 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, *,
     setup = make_setup(cell, seed, "cuda:0" if on_card else "cpu", log)
     call = (substitute or program_call)(setup)
     spans = loop.Spans(enabled=trace)
-    n_classes = setup.pipe.n_classes
-    keep = loop.Reservoir(t["check_batches"], seed,
-                          (setup.rows.shape[1], n_classes), setup.device)
+    output, units = setup.kind.output(setup), setup.kind.units(setup)
+    keep = loop.Reservoir(t["check_batches"], seed, output, setup.device)
     the_loop = loop.ClosedLoop(call, setup.rows, setup.keys, t["in_flight"],
-                               n_classes, spans, keep)
-    for i in range(t["in_flight"]):  # warm the cell's one spec and bucket
+                               output, spans, keep)
+    for i in range(t["in_flight"]):  # warm the shapes the window runs
         t0 = time.perf_counter()
         call(*the_loop.inputs(i))
         if on_card:
@@ -218,7 +238,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, *,
             device_info = {"busy_s": profile.busy_s,
                            "window_s": profile.window_s}
             breakdown = profile.breakdown()
-        ctx = Context(setup, window_spans, window, profile)
+        ctx = Context(setup, window_spans, window, profile, units)
         for m in cell.per_layer:
             if not on_card and m["source"] != "program_counter":
                 continue  # a CPU run writes no timing
@@ -230,9 +250,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, *,
             if value is not None:
                 metrics[m["name"]] = {"value": value, "unit": m["unit"]}
     elif on_card:
-        rows_per_s = window.in_window * setup.rows.shape[1] / window.seconds
+        units_per_s = window.in_window * units / window.seconds
         for m in cell.end_to_end:
-            value = {"inf_per_s": rows_per_s, "setup_s": setup_s}.get(
+            value = {"inf_per_s": units_per_s, "setup_s": setup_s}.get(
                 m["name"])
             if value is None:
                 raise KeyError(f"no measurement for end-to-end metric "
@@ -260,9 +280,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, *,
     bad = forbidden_modules()
     if bad:
         raise RuntimeError(f"modules of JAX or the JAX package loaded: {bad}")
-    b = setup.rows.shape[1]
-    result = {"correct": correct, "attempted": window.dispatched * b,
-              "failed": (window.dispatched - window.completed) * b,
+    result = {"correct": correct, "attempted": window.dispatched * units,
+              "failed": (window.dispatched - window.completed) * units,
               "metrics": metrics, "device": device_info}
     if breakdown is not None:
         result["breakdown"] = breakdown

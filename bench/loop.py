@@ -4,11 +4,12 @@ ahead, and the host-clock spans the benchmark records around it.
 Call i runs row batch i % (row batches) with, when the spec takes per-row
 keys, key batch i % (key batches): the keys' pool is larger than the
 rows', so each call of a window draws its own thresholds and a sample of
-calls checks that many distinct draws.  It then copies its votes into a
+calls checks that many distinct draws.  It then copies its output into a
 pinned host buffer without blocking and records an event.  At most
 `in_flight` calls are outstanding: before call i + in_flight is
-dispatched, the loop waits on call i's event.  A call's rows count as
-done when its votes are on the host, at the moment the host sees that.
+dispatched, the loop waits on call i's event.  A call's inputs count as
+done when its output is on the host, at the moment the host sees that.
+The output's shape and dtype are the model kind's (`bench/kinds/`).
 """
 
 from __future__ import annotations
@@ -49,19 +50,20 @@ class Spans:
 class Reservoir:
     """A uniform sample of `k` of the loop's calls, drawn from the seed
     (Algorithm R, decided when a call is dispatched): each kept call's
-    index, its inputs (`ClosedLoop.batches`) and its votes, copied on the
+    index, its inputs (`ClosedLoop.batches`) and its output, copied on the
     device into a buffer set aside in set-up, so keeping a call costs the
-    host no more than a launch."""
+    host no more than a launch.  `output` is (shape, dtype) of one call's
+    output."""
 
-    def __init__(self, k: int, seed: int, shape: tuple, device):
+    def __init__(self, k: int, seed: int, output: tuple, device):
+        shape, dtype = output
         self.k = k
         self.rng = np.random.default_rng([seed, 0xC4EC])
         self.seen = 0
-        self.votes = torch.empty((k, *shape), dtype=torch.int32,
-                                 device=device)
+        self.outs = torch.empty((k, *shape), dtype=dtype, device=device)
         self.calls: list[tuple[int, tuple]] = []
 
-    def offer(self, index: int, batches: tuple, votes: torch.Tensor) -> None:
+    def offer(self, index: int, batches: tuple, out: torch.Tensor) -> None:
         """Keep call `index` in place of a random earlier one, or not."""
         self.seen += 1
         if len(self.calls) < self.k:
@@ -72,12 +74,12 @@ class Reservoir:
             if j >= self.k:
                 return
             self.calls[j] = (index, batches)
-        self.votes[j].copy_(votes, non_blocking=True)
+        self.outs[j].copy_(out, non_blocking=True)
 
     @property
     def kept(self) -> list:
-        """[(call, (row batch, key batch or None), votes on the host)]."""
-        return [(i, b, self.votes[j].cpu())
+        """[(call, (row batch, key batch or None), output on the host)]."""
+        return [(i, b, self.outs[j].cpu())
                 for j, (i, b) in enumerate(self.calls)]
 
 
@@ -87,21 +89,21 @@ class Stats:
 
     seconds: float = 0.0  # the window's length (the run's end to end)
     dispatched: int = 0  # calls sent
-    completed: int = 0  # calls whose votes reached the host
+    completed: int = 0  # calls whose output reached the host
     in_window: int = 0  # of those, the ones that did before the window closed
 
 
 class ClosedLoop:
-    """Drives `call(x, keys) -> votes [B, C] int32` over the pool."""
+    """Drives `call(x, keys) -> out` over the pool; `output` is (shape,
+    dtype) of one call's `out`."""
 
     def __init__(self, call, rows: torch.Tensor, keys, in_flight: int,
-                 n_classes: int, spans: Spans, keep: Reservoir):
+                 output: tuple, spans: Spans, keep: Reservoir):
         self.call, self.rows, self.keys = call, rows, keys
         self.in_flight, self.spans, self.keep = in_flight, spans, keep
         self.cuda = rows.device.type == "cuda"
-        b = rows.shape[1]
-        self.host = [torch.empty((b, n_classes), dtype=torch.int32,
-                                 pin_memory=self.cuda)
+        shape, dtype = output
+        self.host = [torch.empty(shape, dtype=dtype, pin_memory=self.cuda)
                      for _ in range(in_flight)]
         self.events = [torch.cuda.Event() if self.cuda else None
                        for _ in range(in_flight)]
@@ -120,10 +122,10 @@ class ClosedLoop:
     def _dispatch(self, i: int) -> None:
         slot = i % self.in_flight
         with self.spans("pipeline.run"):
-            votes = self.call(*self.inputs(i))
+            out = self.call(*self.inputs(i))
         with self.spans("copy"):
-            self.keep.offer(i, self.batches(i), votes)
-            self.host[slot].copy_(votes, non_blocking=self.cuda)
+            self.keep.offer(i, self.batches(i), out)
+            self.host[slot].copy_(out, non_blocking=self.cuda)
             if self.cuda:
                 self.events[slot].record()
 

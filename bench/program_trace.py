@@ -147,11 +147,11 @@ def _stretch(ctx, obs) -> Program:
     calls = max(3, math.ceil(trace.PROFILE_SECONDS / per_call))
     spans = loop.Spans(enabled=True)
     spans.timeline = []
-    n_classes = setup.pipe.n_classes
+    output = setup.kind.output(setup)
     the_loop = loop.ClosedLoop(
         harness.program_call(setup), setup.rows, setup.keys,
-        setup.traffic["in_flight"], n_classes, spans,
-        loop.Reservoir(0, 0, (ctx.batch, n_classes), setup.device))
+        setup.traffic["in_flight"], output, spans,
+        loop.Reservoir(0, 0, output, setup.device))
     torch.cuda.synchronize()
     obs.take()
     try:

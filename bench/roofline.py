@@ -2,13 +2,14 @@
 counted from shapes alone (never from the program's objects).
 
 A bound is the least time the card could take for a piece of work: the
-larger of its bytes over the card's memory bandwidth and its bit
-operations over the 1-bit tensor-core rate.  Each input byte counts once
-as read and each output byte once as written, whatever a kernel reads
-again; a packed operand counts at its bits (a thermometer-4 pixel is 4
-bits, whatever word the program keeps it in); a binary layer costs one
-XNOR-popcount MAC per weight bit per row, and the CAM head's distance
-counts once, not once per pass.
+largest of its bytes over the card's memory bandwidth, its bit
+operations over the 1-bit tensor-core rate and its floating-point
+operations over the dense bfloat16 tensor-core rate.  Each input byte
+counts once as read and each output byte once as written, whatever a
+kernel reads again; a packed operand counts at its bits (a thermometer-4
+pixel is 4 bits, whatever word the program keeps it in); a binary layer
+costs one XNOR-popcount MAC per weight bit per row, and the CAM head's
+distance counts once, not once per pass.
 """
 
 from __future__ import annotations
@@ -24,6 +25,9 @@ SM_CLOCK_HZ = 1.98e9  # the card's maximum SM clock (nvidia-smi clocks.max.sm)
 # (NVIDIA H100 80GB HBM3, 700 W); NVIDIA publishes no 1-bit rate for it.
 B1_MACS_PER_CLK_SM = 29768
 B1_MACS_PER_S = B1_MACS_PER_CLK_SM * SMS * SM_CLOCK_HZ
+# NVIDIA H100 SXM data sheet: 1,979 TFLOP/s of bfloat16 with sparsity,
+# so 989.5 dense.  A multiply-add counts as two operations.
+BF16_FLOPS_PER_S = 989.5e12
 
 WORD_BYTES = 4  # an int32 constant, distance or vote
 
@@ -35,22 +39,31 @@ def packed(rows: int, bits: int) -> float:
 
 @dataclasses.dataclass(frozen=True)
 class Work:
-    """Bytes moved and bit-MACs done by one piece of work."""
+    """Bytes moved, bit-MACs and floating-point operations done by one
+    piece of work."""
 
     nbytes: float
     bitops: float
+    flops: float = 0.0
 
     def __add__(self, other: "Work") -> "Work":
-        return Work(self.nbytes + other.nbytes, self.bitops + other.bitops)
+        return Work(self.nbytes + other.nbytes, self.bitops + other.bitops,
+                    self.flops + other.flops)
+
+    def _terms(self) -> dict:
+        return {"bytes": self.nbytes / HBM_BYTES_PER_S,
+                "operations": self.bitops / B1_MACS_PER_S,
+                "flops": self.flops / BF16_FLOPS_PER_S}
 
     def bound_s(self) -> float:
-        """Least seconds on the card: the larger of the two terms."""
-        return max(self.nbytes / HBM_BYTES_PER_S, self.bitops / B1_MACS_PER_S)
+        """Least seconds on the card: the largest of the three terms."""
+        return max(self._terms().values())
 
     def bound_by(self) -> str:
-        """Which term sets the bound: "bytes" or "operations"."""
-        return ("bytes" if self.nbytes / HBM_BYTES_PER_S
-                >= self.bitops / B1_MACS_PER_S else "operations")
+        """Which term sets the bound: "bytes", "operations" (bit-MACs) or
+        "flops"; on a tie, the first of these."""
+        terms = self._terms()
+        return max(terms, key=terms.get)
 
 
 def gemm_hd(m: int, n: int, n_bits: int) -> Work:

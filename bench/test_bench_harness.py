@@ -1,12 +1,15 @@
 """The harness on the CPU: control flow end to end at a tiny size, the
 refusals (no card, no program beside the benchmark's files, JAX loaded),
-a cell and a metric added as data alone, and the faults and controls
-that `correct` has to catch.  The CPU runs write no timing and no device
+a cell and a metric added as data alone, a model kind added as files
+alone, the draws pinned to a seed, and the faults and controls that
+`correct` has to catch.  The CPU runs write no timing and no device
 metric; the measurement path refuses to run without a card."""
 
 import dataclasses
+import hashlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -285,3 +288,180 @@ def test_control_fails_at_the_cell_size(card, name):
     assert out.returncode == 0, out.stderr[-4000:]
     rec = json.loads(out.stdout.strip().splitlines()[-1])
     assert rec["side"] == "control" and rec["correct"] is False
+
+
+TINY_KIND = '''\
+"""A throwaway kind: greedy next tokens of a bigram model in plain torch."""
+
+import torch
+
+from bench import roofline
+
+
+def make(cfg, traffic, gen, device, log):
+    v, d = cfg["vocab"], cfg["width"]
+    emb = torch.randn((v, d), generator=gen, device=gen.device)
+    out = torch.randn((d, v), generator=gen, device=gen.device)
+    rows = torch.randint(0, v, (traffic["pool_batches"], traffic["batch"],
+                                traffic["seq"]),
+                         generator=gen, device=gen.device)
+    return dict(net={"emb": emb.cpu(), "out": out.cpu()}, rows=rows,
+                keys=None, noise=None, spec=None, pipe=(emb, out))
+
+
+def call(setup):
+    emb, out = setup.pipe
+    return lambda tokens, keys: (emb[tokens] @ out).argmax(-1)
+
+
+def output(setup):
+    return tuple(setup.rows.shape[1:]), torch.int64
+
+
+def units(setup):
+    return setup.rows.shape[1] * setup.rows.shape[2]
+
+
+def _reference(setup, tokens, dtype):
+    emb, out = setup.net["emb"].to(dtype), setup.net["out"].to(dtype)
+    return (emb[tokens.cpu()] @ out).argmax(-1)
+
+
+def compare(setup, kept):
+    differing = sum(
+        int((got != _reference(setup, setup.rows[rb], torch.float32)).sum())
+        for _, (rb, _), got in kept)
+    return {"tokens_differing": {
+        "value": differing,
+        "limit": setup.traffic["limits"]["tokens_differing"], "rule": "<="}}
+
+
+def control_call(setup, control):
+    return lambda tokens, keys: _reference(setup, tokens, torch.bfloat16)
+
+
+def step_work(setup):
+    b, s = setup.rows.shape[1:]
+    v, d = setup.cfg["vocab"], setup.cfg["width"]
+    return roofline.Work(16 * b * s + 8 * v * d, 0, 2 * b * s * d * v)
+'''
+
+
+def test_a_kind_is_added_as_files(tmp_path):
+    """A configuration of a new kind, its cell and a counter of its units,
+    each a file of its own: the harness runs them with no file of its
+    edited."""
+    shutil.copytree(ROOT / "bench", tmp_path / "bench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    bench["configs"].append({
+        "name": "tiny", "source": "https://example.org/tiny",
+        "file": "bench/configs/tiny.json", "reduced": [],
+        "why": "a throwaway configuration"})
+    bench["workloads"].append({
+        "name": "tiny.greedy", "config": "tiny", "traffic": "greedy",
+        "chips": 1, "why": "a throwaway cell"})
+    bench["per_layer"].append({
+        "name": "loop.units_completed", "unit": "tokens", "better": "higher",
+        "source": "program_counter", "layer": "pipeline glue",
+        "moves": "inf_per_s", "workloads": ["tiny.greedy"]})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    (tmp_path / "bench/configs/tiny.json").write_text(json.dumps(
+        {"name": "tiny", "model": "tiny_tokens", "vocab": 64, "width": 16}))
+    (tmp_path / "bench/workloads/tiny.greedy.json").write_text(json.dumps(
+        {"batch": 4, "seq": 8, "in_flight": 2, "pool_batches": 3,
+         "check_batches": 2, "limits": {"tokens_differing": 0}}))
+    (tmp_path / "bench/kinds/tiny_tokens.py").write_text(TINY_KIND)
+    (tmp_path / "bench/metrics/loop.units_completed.py").write_text(
+        "def read(ctx):\n    return ctx.window.completed * ctx.units\n")
+
+    r = _rehearse(tmp_path, "tiny.greedy", 1)
+    per_call = 64 * 8  # the rehearsal's batch of 64, 8 tokens a row
+    assert r["correct"] is True
+    assert r["checks"]["tokens_differing"]["value"] == 0
+    assert r["checks"]["calls_compared"]["value"] >= 1
+    completed = r["metrics"]["loop.units_completed"]["value"]
+    assert completed >= per_call and completed % per_call == 0
+    assert r["attempted"] >= completed and r["attempted"] % per_call == 0
+    assert r["failed"] == r["attempted"] - completed
+
+    cell = harness.find_cell(harness.load_benchmark(tmp_path), "tiny.greedy",
+                             tmp_path)
+    setup = harness.make_setup(cell, 5, "cpu", lambda m: None)
+    w = setup.kind.step_work(setup)
+    assert w.flops == 2 * 4 * 8 * 16 * 64
+    assert w.bound_s() == max(w.nbytes / 3.35e12, w.flops / 989.5e12)
+    rows = setup.rows[0]
+    assert not torch.equal(harness.program_call(setup)(rows, None),
+                           check.control_call(setup, "bf16")(rows, None))
+
+    mine = sorted(p.relative_to(ROOT) for p in (ROOT / "bench").rglob("*.py")
+                  if "__pycache__" not in p.parts)
+    assert mine
+    for rel in mine:  # no code of the benchmark was edited
+        assert (tmp_path / rel).read_bytes() == (ROOT / rel).read_bytes(), rel
+
+
+def test_the_harness_names_no_kind():
+    word = re.compile(r"\b(mlp|cnn|n_classes|InferenceSpec)\b", re.I)
+    for name in ("harness.py", "loop.py", "check.py", "trace.py",
+                 "program_trace.py"):
+        text = (ROOT / "bench" / name).read_text()
+        assert not word.findall(text), name
+
+
+def test_every_kind_loads_without_jax():
+    code = textwrap.dedent(f"""
+        import sys
+        sys.path[0:0] = [{str(ROOT)!r}, {str(SRC)!r}]
+        from bench import harness
+        kinds = sorted((harness.ROOT / "bench" / "kinds").glob("*.py"))
+        for path in kinds:
+            kind = harness.load_kind(path.stem)
+            for fn in ("make", "call", "output", "units", "compare",
+                       "control_call", "step_work"):
+                assert callable(getattr(kind, fn)), (path.stem, fn)
+        bad = harness.forbidden_modules()
+        assert not bad, bad
+        print("KINDS", " ".join(p.stem for p in kinds))
+    """)
+    out = _python(code, ROOT)
+    assert out.returncode == 0, out.stderr[-4000:]
+    kinds = out.stdout.split("KINDS", 1)[1].split()
+    assert {"cnn", "mlp"} <= set(kinds)
+
+
+# sha256 (first 16 hex digits) of the weights, the row pool and the key
+# words that `make_setup` draws at seed 2**31 + 23, a batch of 16, 2 row
+# and 3 key batches, on the CPU: recorded with the harness as it was
+# before the kinds moved out of it (`make_setup` drawing through
+# `bench/model.py` itself)
+DRAWS = {
+    "hg_mlp.offline_votes": ("5ee3ad1b11c967bf", "fa17f3f477470269", None),
+    "hg_cnn.offline_votes": ("1594e9bac50079d2", "4885c0e22288d27e", None),
+    "hg_mlp.silicon_keyed": ("5ee3ad1b11c967bf", "fa17f3f477470269",
+                             "ff8359f004031f4e"),
+    "hg_cnn.silicon_keyed": ("1594e9bac50079d2", "4885c0e22288d27e",
+                             "02d419ec756d5bf3"),
+}
+
+
+def _digest(tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+@pytest.mark.parametrize("name", sorted(DRAWS))
+def test_the_draws_from_a_seed_are_pinned(name):
+    """The same seed draws the same weights, rows and keys as the harness
+    did before the model kinds moved out of it."""
+    cell = harness.find_cell(harness.load_benchmark(), name)
+    cell = dataclasses.replace(cell, traffic=dict(
+        cell.traffic, batch=16, pool_batches=2, key_batches=3))
+    setup = harness.make_setup(cell, 2**31 + 23, "cpu", lambda m: None)
+    net = _digest(t for part in ("conv", "fc") for layer in setup.net[part]
+                  for t in (layer["w"], layer["c"]))
+    keys = None if setup.keys is None else _digest([setup.keys])
+    assert (net, _digest([setup.rows]), keys) == DRAWS[name]

@@ -4,7 +4,7 @@ beside them, votes with noise off and with per-row keys), the controls as
 real departures, and the bound arithmetic (kernel 3 at HG B = 4096:
 0.0007 ms, as the kernel table; kernel 4: 0.0026 ms, its pixels counted
 at the encoding's 4 bits, where the table's 0.0202 counted an int32 word
-a pixel)."""
+a pixel), pinned at the cells' shapes, with the floating-point term."""
 
 import json
 from pathlib import Path
@@ -142,3 +142,44 @@ def test_conv_bound_counts_each_pixel_at_its_encoding_bits():
     assert roofline.fused_conv(cnn, 4096).nbytes == (
         4096 * 64 * 64 * 4 / 8 + convs.nbytes + tail.nbytes)
     assert convs.nbytes == 32 * 9 * 4 / 8 + 4 * 32 + 32 * 9 * 32 / 8 + 4 * 32
+
+
+# (configuration, work, key bytes a row) at the cells' batch, 32,768 rows:
+# (bytes, bit-MACs, bound s), as `bench/roofline.py` gave them before
+# `Work` took a floating-point term
+PINS = {
+    ("hg_mlp", "fused_mlp", 0): (19465316.0, 17305698304,
+                                 5.810542089552239e-06),
+    ("hg_mlp", "hd_once_gemms", 0): (37028320.0, 17305698304,
+                                     1.1053229850746269e-05),
+    ("hg_mlp", "step", 0): (539559012.0, 17305698304,
+                            0.00016106239164179106),
+    ("hg_mlp", "step", 16): (540083300.0, 17305698304,
+                             0.00016121889552238807),
+    ("hg_cnn", "fused_conv", 0): (69848180.0, 134549078016,
+                                  2.0850202985074626e-05),
+    ("hg_cnn", "hd_once_gemms", 0): (49791968.0, 30324817920,
+                                     1.4863274029850747e-05),
+    ("hg_cnn", "step", 0): (539610228.0, 134549078016, 0.00016107768),
+    ("hg_cnn", "step", 16): (540134516.0, 134549078016,
+                             0.000161234183880597),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PINS), ids=str)
+def test_bounds_at_the_cells_shapes_are_pinned(case):
+    cfg, fn, key_bytes = case
+    args = (key_bytes,) if fn == "step" else ()
+    w = getattr(roofline, fn)(_config(cfg), 32768, *args)
+    assert (w.nbytes, w.bitops, w.bound_s()) == PINS[case]
+    assert w.flops == 0 and w.bound_by() == "bytes"
+
+
+def test_a_flops_term_bounds_at_the_dense_bf16_rate():
+    w = roofline.Work(0, 0, 2 * 989.5e12)
+    assert w.bound_s() == 2.0 and w.bound_by() == "flops"
+    total = w + roofline.Work(3.35e12, 0)
+    assert total.flops == w.flops and total.bound_s() == 2.0
+    assert roofline.Work(3.35e12, 0, 989.5e12).bound_by() == "bytes"
+    assert roofline.Work(0, roofline.B1_MACS_PER_S, 989.5e12).bound_by() \
+        == "operations"
