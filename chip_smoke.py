@@ -205,11 +205,29 @@ exit 0):
    weights; lm_train's 60 losses are finite; ft_demo restarts twice and
    ends on the failure-free run's parameters.  Each example's wall
    seconds and launches in an `{"examples": ...}` line.
-12. A `{"kernels": [...]}` line (launches on the kernel's path, on the
+12. LFM2-8B-A1B's prefill kernels (`lfm2_phase`): kernel 1's grouped
+   entry (`grouped_bitlinear_hd`), SwiGLU-and-signs and the combine
+   (`kernels/expert_ffn.py`), the RMS norm and a BitLinear input's signs
+   (`kernels/rows.py`), each at the benchmark cell's shapes (2 prompts x
+   2,048 tokens: 16,384 routed slots over 32 experts at ragged loads, one
+   expert with none; gate and up N 3,584 at K 2,048, down N 2,048 at K
+   1,792; [4,096, 2,048] bfloat16 rows) against its plain version on the
+   card: distances and sign bits equal, the norms and betas within their
+   last bfloat16 bit, the combine equal; device ms a launch beside the
+   bound (bytes, or kernel 1's 1-bit products).  Then the model at its
+   published widths (`lfm2-8b-a1b+binary-ffn`, random weights), every
+   counter set to 0 just before one `prefill` of the cell's prompts: each
+   kernel launched as often as its layers ask (2 grouped launches, one
+   SwiGLU, one combine and one sign pass a MoE layer; an RMS norm a
+   sublayer norm, a QK norm and the final norm), and the call's ms at 2
+   and 4 prompts, op by op and replayed from a CUDA graph
+   (`prefill_graphed`), in an `{"lfm2": ...}` line.
+13. A `{"kernels": [...]}` line (launches on the kernel's path, on the
    silicon, train, LM, long-context, LM-training, mesh, dry-run and
    examples paths, error, times, sampled-form times, bound, the LM-shape,
-   long-context and examples rows), then, as the last line, `{"ok": true,
-   "device": ...}`.
+   long-context and examples rows; the LFM2 prefill's kernels with their
+   launches a call, error, time and bound), then, as the last line,
+   `{"ok": true, "device": ...}`.
 
 Without CUDA, or without the rest of the repository beside it, the script
 exits non-zero before printing any result.  It imports nothing of JAX.
@@ -264,6 +282,11 @@ SOURCES = {
     "fused_conv_votes": "src/repro_torch/kernels/csrc/fused_conv.cu",
     "conv_stage_packed": "src/repro_torch/kernels/csrc/fused_conv.cu",
     "keyed_thresholds": "src/repro_torch/kernels/csrc/keyed_sampler.cu",
+    "grouped_bitlinear_hd": "src/repro_torch/kernels/csrc/binary_gemm.cu",
+    "expert_swiglu_signs": "src/repro_torch/kernels/csrc/expert_ffn.cu",
+    "expert_combine": "src/repro_torch/kernels/csrc/expert_ffn.cu",
+    "rms_norm_rows": "src/repro_torch/kernels/csrc/rows.cu",
+    "sign_rows": "src/repro_torch/kernels/csrc/rows.cu",
 }
 # the keyed sampler's work a normal (csrc/keyed_sampler.cu): Threefry-2x32-20
 # in 32-bit ALU operations (20 rounds of add, funnel-shift, xor and the key
@@ -3381,6 +3404,199 @@ def examples_phase(dev, smi: str, card, counted) -> dict:
                 numbers=numbers, phase_s=phase_s, card=smi)
 
 
+# ---------------------------------------------------------------------------
+# LFM2-8B-A1B's prefill kernels (phase 12)
+# ---------------------------------------------------------------------------
+LFM2_ARCH = "lfm2-8b-a1b+binary-ffn"
+LFM2_PROMPTS, LFM2_TOKENS = 2, 2048  # the benchmark cell's call
+LFM2_TIMED_PROMPTS = (2, 4)
+
+
+def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest |got - want| in units of want's last bfloat16 bit."""
+    w = want.float()
+    ulp = torch.ldexp(torch.ones_like(w), torch.frexp(w).exponent - 8)
+    return float(((got.float() - w).abs() / ulp).max())
+
+
+def _lfm2_loads(gen, slots: int, experts: int) -> list:
+    """Loads of `slots` over `experts`, uneven as a biased router's, with
+    expert 1 given none."""
+    w = torch.rand(experts, generator=gen) ** 3
+    w[1] = 0.0
+    loads = (w / w.sum() * slots).floor().long()
+    loads[int(w.argmax())] += slots - int(loads.sum())
+    return loads.tolist()
+
+
+def _lfm2_kernel(name, ms, bound, shape, **err) -> dict:
+    return dict(name=name, shape=shape, ms=ms, **bound, **err)
+
+
+def lfm2_kernel_rows(dev, card: Card, cfg) -> dict:
+    """Phase 12's kernel checks at the cell's shapes: {kernel: row}."""
+    from repro_torch.kernels import binary_gemm as bg
+    from repro_torch.kernels import expert_ffn
+    from repro_torch.kernels import rows as row_ops
+
+    gen = torch.Generator().manual_seed(SEED + 25)
+    dgen = torch.Generator(dev).manual_seed(SEED + 25)
+    t, k, e = LFM2_PROMPTS * LFM2_TOKENS, cfg.moe_top_k, cfg.n_experts
+    d, f, s = cfg.d_model, cfg.expert_d_ff, t * k
+    loads = _lfm2_loads(gen, s, e)
+    offsets = torch.tensor([0, *torch.tensor(loads).cumsum(0).tolist()],
+                           dtype=torch.int32, device=dev)
+    expert = torch.repeat_interleave(
+        torch.arange(e, device=dev), torch.tensor(loads, device=dev)).to(
+        torch.int32)
+    rows = {}
+
+    def words(*shape):
+        return torch.randint(-2**31, 2**31 - 1, shape, generator=dgen,
+                             device=dev, dtype=torch.int64).to(torch.int32)
+
+    # kernel 1's grouped entry: gate and up as one, then down
+    for label, kw, n in (("gate_up", d // 32, 2 * f), ("down", f // 32, d)):
+        x, w = words(s, kw), words(e, n, kw)
+        got = bg.grouped_bitlinear_hd(x, offsets, w)
+        require(torch.equal(got, bg.grouped_bitlinear_hd_plain(x, offsets,
+                                                               w)),
+                f"grouped_bitlinear_hd {label}: kernel != plain")
+        pairs = s * n * kw
+        rows.setdefault("grouped_bitlinear_hd", []).append(_lfm2_kernel(
+            label, device_ms(lambda: bg.grouped_bitlinear_hd(x, offsets, w),
+                             iters=20),
+            bound_fields(card, pairs, 2 * pairs,
+                         4 * (s * kw + e * n * kw + s * n), 32 * pairs, 0),
+            f"x[{s},{kw}] w[{e},{n},{kw}] loads {min(loads)}-{max(loads)}",
+            max_abs_err=0))
+    # SwiGLU and the down operands' signs; the combine
+    hd = torch.randint(0, d + 1, (s, 2 * f), generator=dgen, device=dev,
+                       dtype=torch.int32)
+    alpha = torch.rand((e, 2 * f), generator=dgen, device=dev).to(
+        torch.bfloat16)
+    beta = torch.rand((s,), generator=dgen, device=dev).to(torch.bfloat16)
+    bits, b_act = expert_ffn.swiglu_signs(hd, alpha, beta, expert, d)
+    want_bits, want_b = expert_ffn.swiglu_signs_plain(hd, alpha, beta,
+                                                      expert, d)
+    ulps = bf16_ulps(b_act, want_b)
+    require(torch.equal(bits, want_bits) and ulps <= 1,
+            f"expert_swiglu_signs: kernel != plain ({ulps} bf16 bits)")
+    rows["expert_swiglu_signs"] = [_lfm2_kernel(
+        "swiglu", device_ms(lambda: expert_ffn.swiglu_signs(
+            hd, alpha, beta, expert, d), iters=20),
+        bound_fields(card, 0, 0, 4 * s * 2 * f + 2 * e * 2 * f + 2 * s
+                     + 4 * s + 4 * s * (f // 32) + 2 * s, 0, 0),
+        f"hd[{s},{2 * f}]", beta_ulps=ulps)]
+    hd2 = torch.randint(0, f + 1, (s, d), generator=dgen, device=dev,
+                        dtype=torch.int32)
+    alpha2 = torch.rand((e, d), generator=dgen, device=dev).to(torch.bfloat16)
+    back = torch.randperm(s, generator=dgen, device=dev)
+    gate = torch.rand((t, k), generator=dgen, device=dev)
+    got = expert_ffn.combine(hd2, alpha2, want_b, expert, back, gate, f)
+    want = expert_ffn.combine_plain(hd2, alpha2, want_b, expert, back, gate,
+                                    f)
+    require(torch.equal(got, want), "expert_combine: kernel != plain")
+    rows["expert_combine"] = [_lfm2_kernel(
+        "combine", device_ms(lambda: expert_ffn.combine(
+            hd2, alpha2, want_b, expert, back, gate, f), iters=20),
+        bound_fields(card, 0, 0, 4 * s * d + 2 * e * d + 2 * s + 4 * s
+                     + 8 * s + 4 * s + 2 * t * d, 0, 0),
+        f"hd[{s},{d}] -> y[{t},{d}]", max_abs_err=0)]
+    # the RMS norm and a BitLinear input's signs and beta
+    x = torch.randn((t, d), generator=dgen, device=dev).to(torch.bfloat16)
+    scale = (1 + 0.2 * torch.randn(d, generator=dgen, device=dev)).to(
+        torch.bfloat16)
+    ulps = bf16_ulps(row_ops.rms_norm(x, scale, cfg.norm_eps),
+                     row_ops.rms_norm_plain(x, scale, cfg.norm_eps))
+    require(ulps <= 1, f"rms_norm_rows: kernel != plain ({ulps} bf16 bits)")
+    rows["rms_norm_rows"] = [_lfm2_kernel(
+        "rms_norm", device_ms(lambda: row_ops.rms_norm(x, scale,
+                                                       cfg.norm_eps),
+                              iters=20),
+        bound_fields(card, 0, 0, 2 * 2 * t * d + 2 * d, 0, 0),
+        f"x[{t},{d}] bf16", norm_ulps=ulps)]
+    (bits, b), (want_bits, want_b) = row_ops.sign_rows(x), \
+        row_ops.sign_rows_plain(x)
+    ulps = bf16_ulps(b, want_b)
+    require(torch.equal(bits, want_bits) and ulps <= 1,
+            f"sign_rows: kernel != plain ({ulps} bf16 bits)")
+    rows["sign_rows"] = [_lfm2_kernel(
+        "sign_rows", device_ms(lambda: row_ops.sign_rows(x), iters=20),
+        bound_fields(card, 0, 0, 2 * t * d + 4 * t * (d // 32) + 2 * t,
+                     0, 0),
+        f"x[{t},{d}] bf16", beta_ulps=ulps)]
+    for name, rs in rows.items():
+        for r in rs:
+            print(f"  {name} {r['shape']}: {r['ms']:.4f} ms, bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_route']})")
+    return rows
+
+
+def lfm2_phase(dev, card: Card, smi: str) -> dict:
+    """Phase 12 (module docstring): the LFM2 prefill's kernels at the
+    cell's shapes, then their launches in one prefill of the model at its
+    published widths, and the call's time at 2 and 4 prompts."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import binary_gemm as bg
+    from repro_torch.kernels import expert_ffn
+    from repro_torch.kernels import rows as row_ops
+    from repro_torch.models.model import (init_params, prefill,
+                                          prefill_graphed)
+
+    cfg = get_config(LFM2_ARCH)
+    rows = lfm2_kernel_rows(dev, card, cfg)
+    counted = {"grouped_bitlinear_hd": bg.grouped_bitlinear_hd,
+               "expert_swiglu_signs": expert_ffn.swiglu_signs,
+               "expert_combine": expert_ffn.combine,
+               "rms_norm_rows": row_ops.rms_norm,
+               "sign_rows": row_ops.sign_rows}
+    pat = cfg.pattern()
+    moe, attn = sum(pat.moe_mask), pat.kinds.count("attn")
+    want = {"grouped_bitlinear_hd": 2 * moe, "expert_swiglu_signs": moe,
+            "expert_combine": moe, "rms_norm_rows": 2 * cfg.n_layers
+            + 2 * attn + 1, "sign_rows": moe}
+    gen = torch.Generator(dev).manual_seed(SEED + 26)
+    reset_peak(dev)
+    model = init_params(cfg, gen, dev)
+    with torch.no_grad():
+        for name, buf in model.named_buffers():
+            if name.endswith("expert_bias"):
+                buf.copy_(0.1 * torch.randn(buf.shape, generator=gen,
+                                            device=dev))
+    call_ms = {}
+    for b in LFM2_TIMED_PROMPTS:
+        tok = torch.randint(0, cfg.vocab_size, (b, LFM2_TOKENS),
+                            generator=gen, device=dev)
+        prefill(model, cfg, tok, max_len=LFM2_TOKENS)  # builds and packs
+        torch.cuda.synchronize()
+        if b == LFM2_PROMPTS:
+            for fn in counted.values():
+                fn.launches = 0
+            logits, _ = prefill(model, cfg, tok, max_len=LFM2_TOKENS)
+            torch.cuda.synchronize()
+            launches = {n: fn.launches for n, fn in counted.items()}
+            print(f"LFM2 prefill [{b}, {LFM2_TOKENS}]: launches {launches}")
+            require(launches == want,
+                    f"LFM2 prefill launches {launches}, expected {want}")
+            require(bool(torch.isfinite(logits).all()),
+                    "LFM2 prefill: logits not finite")
+        call_ms[b] = dict(
+            op_by_op=time_ms(lambda: prefill(model, cfg, tok,
+                                             max_len=LFM2_TOKENS), 10),
+            graphed=time_ms(lambda: prefill_graphed(
+                model, cfg, tok, max_len=LFM2_TOKENS), 10))
+        print(f"LFM2 prefill [{b}, {LFM2_TOKENS}]: ms a call {call_ms[b]} "
+              f"({smi})")
+    peak = peak_gb(dev)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(kernels=rows, launches=launches, call_ms=call_ms,
+                peak_gb=peak, card=smi)
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check needs the card",
@@ -3772,6 +3988,10 @@ def run(dev: torch.device, b_main: int, batches, card: Card,
     ex = examples_phase(dev, smi, card, counted)
     print(json.dumps({"examples": ex}))
 
+    # ------------------------------------- LFM2's prefill kernels (phase 12)
+    lfm2 = lfm2_phase(dev, card, smi)
+    print(json.dumps({"lfm2": lfm2}))
+
     # ------------------------------------------------------------ summary
     line = []
     for name, r in report.items():
@@ -3824,6 +4044,16 @@ def run(dev: torch.device, b_main: int, batches, card: Card,
             library_ms=main["library_ms"], shape=main["shape"],
             per_model=r["per_model"], card=smi,
         ))
+    for name, rows in lfm2["kernels"].items():  # phase 12
+        line.append(dict(
+            name=name, route="cuda", source=SOURCES[name], replaces=None,
+            path="LFM2 prefill (models.model.prefill)",
+            launches=lfm2["launches"][name],
+            main_path_launches=lfm2["launches"][name], equal=True,
+            ms=rows[0]["ms"], kernel_ms=rows[0]["ms"],
+            bound_ms=rows[0]["bound_ms"], bound_by=rows[0]["bound_by"],
+            bound_route=rows[0]["bound_route"], shape=rows[0]["shape"],
+            rows=rows, card=smi))
     return line
 
 

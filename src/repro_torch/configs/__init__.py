@@ -3,7 +3,10 @@
 The paper's binary MLPs and CNNs live in `paper_mlp` / `paper_cnn`; this
 package's namespace is the LM architecture registry: `--arch <id>`
 resolution for every launcher (`get_config`, `REGISTRY`, `ALIASES`,
-`list_archs`) over the ten architecture configs.
+`list_archs`) over the ten architecture configs mirrored from the JAX
+package.  `PORT_ONLY` holds the architectures the port alone has
+(`lfm2-8b-a1b`): `get_config` resolves them, the mirrored registry and
+`list_archs()` leave them out.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from repro_torch.configs import variants  # noqa: F401
 from repro_torch.configs.chameleon_34b import CONFIG as _chameleon
 from repro_torch.configs.falcon_mamba_7b import CONFIG as _falcon_mamba
 from repro_torch.configs.jamba_52b import CONFIG as _jamba
+from repro_torch.configs import lfm2_8b_a1b as _lfm2
 from repro_torch.configs.llama3_2_1b import CONFIG as _llama32_1b
 from repro_torch.configs.llama3_405b import CONFIG as _llama3_405b
 from repro_torch.configs.llama4_maverick import CONFIG as _llama4
@@ -67,12 +71,19 @@ ALIASES = {
     "musicgen-medium": "musicgen-medium",
 }
 
+# the port's own architectures: name -> (config, its `+smoke` reduction)
+PORT_ONLY = {_lfm2.CONFIG.name: (_lfm2.CONFIG, _lfm2.smoke)}
+
 
 def get_config(name: str) -> ModelConfig:
     """`<arch>[+modifier...]` -> its config; modifiers apply left to
     right: binary-ffn, cam-head, cam-head-exact, bf16ar, smoke."""
     base, *mods = name.split("+")
-    cfg = REGISTRY[ALIASES.get(base, base)]
+    reduce = variants.reduced
+    if base in PORT_ONLY:
+        cfg, reduce = PORT_ONLY[base]
+    else:
+        cfg = REGISTRY[ALIASES.get(base, base)]
     for mod in mods:
         if mod == "binary-ffn":
             cfg = variants.with_binary_ffn(cfg)
@@ -85,7 +96,7 @@ def get_config(name: str) -> ModelConfig:
                 cfg, name=cfg.name + "+bf16ar", tp_ar_bf16=True
             )
         elif mod == "smoke":
-            cfg = variants.reduced(cfg)
+            cfg = reduce(cfg)
         else:
             raise KeyError(f"unknown config modifier {mod!r}")
     return cfg

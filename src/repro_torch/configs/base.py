@@ -87,6 +87,18 @@ class ModelConfig:
     # attention kv-chunk for flash-style scan
     attn_chunk: int = 1024
 
+    # Port-only settings, off for every mirrored architecture.  They are
+    # plain class attributes, not fields, so a mirrored config's
+    # `dataclasses.asdict` stays the reference's; the port-only
+    # architectures' subclass (`configs/lfm2_8b_a1b.py`) makes them fields.
+    norm_eps = 1e-6  # the RMS norms' epsilon
+    qk_norm_scale = False  # QK-norm with a learned scale a head dim
+    expert_d_ff = None  # the experts' width (None: d_ff)
+    moe_router = "softmax"  # "softmax" | "sigmoid_bias" (+ expert_bias)
+    moe_dropless = False  # inference dispatch sorted by expert, no capacity
+    binary_experts = False  # under binary_ffn, experts on kernel 1 too
+    conv_cache = 3  # taps of a "conv" sublayer's causal depthwise conv
+
     def __post_init__(self):
         if self.head_dim is None:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)

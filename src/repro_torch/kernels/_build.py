@@ -25,7 +25,7 @@ from repro_torch import obs
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("binary_gemm", "cam_search", "fused_mlp", "fused_conv",
-           "keyed_sampler")
+           "keyed_sampler", "expert_ffn", "rows")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -33,12 +33,14 @@ NVCC_FLAGS = (
 
 _VOID_P = ctypes.c_void_p
 _INT = ctypes.c_int
+_LONG = ctypes.c_longlong
 _FLOAT = ctypes.c_float
 # C signatures of the launchers: every pointer and the stream as void*
 _SIGNATURES = {
     "binary_gemm": {
         "binary_gemm_hd_launch": [_VOID_P] * 3 + [_INT] * 3 + [_VOID_P],
         "binary_gemm_plan": [_INT] * 5 + [_VOID_P],
+        "grouped_bitlinear_launch": [_VOID_P] * 4 + [_INT] * 4 + [_VOID_P],
     },
     "cam_search": {
         "cam_vote_launch": [_VOID_P] * 5 + [_INT] * 5 + [_VOID_P],
@@ -56,6 +58,16 @@ _SIGNATURES = {
             [_VOID_P, _INT, _INT] + [_VOID_P] * 3 + [_INT] + [_VOID_P] * 6
             + [_INT] * 7 + [_VOID_P, _INT, _INT] + [_VOID_P] * 3
         ),
+    },
+    "expert_ffn": {
+        "expert_swiglu_signs_launch": [_VOID_P] * 4 + [_INT] * 3
+        + [_VOID_P] * 3,
+        "expert_combine_launch": [_VOID_P] * 6 + [_INT] * 4 + [_VOID_P] * 2,
+    },
+    "rows": {
+        "rms_norm_rows_launch": [_VOID_P, _VOID_P, _LONG, _INT, _FLOAT]
+        + [_VOID_P] * 2,
+        "sign_rows_launch": [_VOID_P, _LONG, _INT] + [_VOID_P] * 3,
     },
     "keyed_sampler": {
         "keyed_thresholds_launch": (

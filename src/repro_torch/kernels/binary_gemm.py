@@ -24,6 +24,15 @@ the rows' popcounts, the output the bound: the long-context prefill),
 and `split_k` for M <= 16 and Kw >= 64 (one n8 tile of columns a block,
 K split among its eight warps and summed exactly in int32: the decode
 BitLinear).
+
+`grouped_bitlinear_hd` is the grouped entry, the custom op
+`repro_torch::grouped_bitlinear_hd`: x [S, Kw] holds runs of rows, run e
+(rows offsets[e] .. offsets[e + 1]) against its own rows w[e] [N, Kw],
+all E runs in one launch of `grouped_bitlinear_kernel` (the dropless
+MoE's experts, each run the slots routed to one expert).  Each block
+takes one 32 x 128 tile of one run, found from the device's offsets, so
+the host never reads the runs' lengths.  Its CPU kernel is
+`grouped_bitlinear_hd_plain`, `binary_gemm_hd_plain` a run.
 """
 
 from __future__ import annotations
@@ -149,4 +158,87 @@ def launch(x_packed: torch.Tensor, w_packed: torch.Tensor) -> torch.Tensor:
                                         out.data_ptr(), m, n, kw, stream)
     _build.check(lib, err, "binary_gemm_hd")
     binary_gemm_hd.launches += 1
+    return out
+
+
+def grouped_bitlinear_hd_plain(x_packed: torch.Tensor, offsets: torch.Tensor,
+                               w_packed: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: `binary_gemm_hd_plain` of each run."""
+    out = torch.zeros((x_packed.shape[0], w_packed.shape[1]),
+                      dtype=torch.int32, device=x_packed.device)
+    bounds = offsets.tolist()
+    for e in range(w_packed.shape[0]):
+        lo, hi = bounds[e], bounds[e + 1]
+        if hi > lo:
+            out[lo:hi] = binary_gemm_hd_plain(x_packed[lo:hi], w_packed[e])
+    return out
+
+
+def grouped_bitlinear_hd(x_packed: torch.Tensor, offsets: torch.Tensor,
+                         w_packed: torch.Tensor) -> torch.Tensor:
+    """Hamming distances of each run of rows against its own packed rows.
+
+    x_packed: [S, Kw] int32; offsets: [E + 1] int32, non-decreasing from
+    0 to S (run e is rows offsets[e] .. offsets[e + 1]); w_packed:
+    [E, N, Kw] int32  ->  [S, N] int32, row r of run e against w[e].
+    CUDA tensors launch the kernel once (counted in
+    `grouped_bitlinear_hd.launches`); CPU tensors take the plain version.
+    """
+    _check_words("x_packed", x_packed)
+    if w_packed.dtype != torch.int32 or w_packed.ndim != 3:
+        raise TypeError(f"w_packed must be 3-D int32 packed words, got "
+                        f"{w_packed.dtype} {tuple(w_packed.shape)}")
+    if offsets.dtype != torch.int32 or offsets.shape != (
+            w_packed.shape[0] + 1,):
+        raise TypeError(f"offsets must be int32 [{w_packed.shape[0] + 1}], "
+                        f"got {offsets.dtype} {tuple(offsets.shape)}")
+    if x_packed.shape[1] != w_packed.shape[2]:
+        raise ValueError(f"packed widths differ: {tuple(x_packed.shape)} vs "
+                         f"{tuple(w_packed.shape)}")
+    if not x_packed.device == offsets.device == w_packed.device:
+        raise ValueError("x_packed, offsets and w_packed are on different "
+                         "devices")
+    return _grouped_op(x_packed, offsets, w_packed)
+
+
+grouped_bitlinear_hd.launches = 0
+
+
+@torch.library.custom_op("repro_torch::grouped_bitlinear_hd", mutates_args=())
+def _grouped_op(x_packed: torch.Tensor, offsets: torch.Tensor,
+                w_packed: torch.Tensor) -> torch.Tensor:
+    raise ValueError(f"unsupported device {x_packed.device}")
+
+
+@_grouped_op.register_fake
+def _(x_packed, offsets, w_packed):
+    return x_packed.new_empty((x_packed.shape[0], w_packed.shape[1]),
+                              dtype=torch.int32)
+
+
+_grouped_op.register_kernel("cpu")(grouped_bitlinear_hd_plain)
+
+
+@_grouped_op.register_kernel("cuda")
+def launch_grouped(x_packed: torch.Tensor, offsets: torch.Tensor,
+                   w_packed: torch.Tensor) -> torch.Tensor:
+    """The grouped kernel's launch on the card (the op's CUDA kernel;
+    checked operands)."""
+    s, kw = x_packed.shape
+    e, n, _ = w_packed.shape
+    out = torch.empty((s, n), dtype=torch.int32, device=x_packed.device)
+    if s == 0 or n == 0:
+        return out
+    x, w, o = x_packed.contiguous(), w_packed.contiguous(), offsets.contiguous()
+    if -(-s // 32) + e > 65535:
+        raise ValueError(f"S = {s} rows over {e} runs exceed the 32 x 128 "
+                         "tile's grid")
+    lib = _build.library("binary_gemm")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.grouped_bitlinear_launch(x.data_ptr(), o.data_ptr(),
+                                           w.data_ptr(), out.data_ptr(), s,
+                                           e, n, kw, stream)
+    _build.check(lib, err, "grouped_bitlinear_hd")
+    grouped_bitlinear_hd.launches += 1
     return out

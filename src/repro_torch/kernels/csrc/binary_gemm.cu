@@ -56,6 +56,18 @@
 //
 // Ragged M and N are zero-filled by the copies (zero words add nothing
 // to a distance or a popcount) and masked on the store.
+//
+// grouped_bitlinear_kernel is the grouped entry (the dropless MoE's
+// BitLinear experts): x holds E runs of rows, run e (rows offsets[e] ..
+// offsets[e + 1]) against its own w[e] [N, Kw], in one launch.  Its
+// blocks are the tile32x128 plan's, laid out over every run's tiles: a
+// grid of N / 128 by (S / 32 + E), at least the sum of the runs' tile
+// rows; block row y walks the device's offsets (E + 1 words, cached) to
+// the run and tile row it owns, and blocks past the last tile exit.  A
+// run's tile is the tile32x128 body on that run's rows, its rows past
+// the run's end zero, so every expert's slots meet only its own rows.
+// At the LM's cell (S = 16,384-32,768 slots of 32 experts, N 1,792 /
+// 2,048, Kw 64 / 56) the [S, N] int32 output is its bound.
 #include <algorithm>
 
 #include "bmma.cuh"
@@ -124,14 +136,15 @@ __device__ __forceinline__ void load_chunk(
 
 }  // namespace
 
+// The 32 x 128 output tile at (m0, n0) of x [m, kw] against w [n, kw],
+// staged through the block's ring xs / ws.
 template <bool ALIGNED>
-__global__ void __launch_bounds__(kThreads)
-binary_gemm_hd_kernel(const uint32_t* __restrict__ x,
-                      const uint32_t* __restrict__ w, int32_t* __restrict__ out,
-                      int m, int n, int kw) {
-  __shared__ __align__(16) uint32_t xs[kStages][kBM][kLd];
-  __shared__ __align__(16) uint32_t ws[kStages][kBN][kLd];
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+__device__ __forceinline__ void hd_tile(const uint32_t* __restrict__ x,
+                                        const uint32_t* __restrict__ w,
+                                        int32_t* __restrict__ out, int m, int n,
+                                        int kw, int m0, int n0,
+                                        uint32_t (*xs)[kBM][kLd],
+                                        uint32_t (*ws)[kBN][kLd]) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int n_chunks = (kw + kKC - 1) / kKC;
@@ -210,6 +223,40 @@ binary_gemm_hd_kernel(const uint32_t* __restrict__ x,
       }
     }
   }
+}
+
+template <bool ALIGNED>
+__global__ void __launch_bounds__(kThreads)
+binary_gemm_hd_kernel(const uint32_t* __restrict__ x,
+                      const uint32_t* __restrict__ w, int32_t* __restrict__ out,
+                      int m, int n, int kw) {
+  __shared__ __align__(16) uint32_t xs[kStages][kBM][kLd];
+  __shared__ __align__(16) uint32_t ws[kStages][kBN][kLd];
+  hd_tile<ALIGNED>(x, w, out, m, n, kw, blockIdx.y * kBM, blockIdx.x * kBN,
+                   xs, ws);
+}
+
+template <bool ALIGNED>
+__global__ void __launch_bounds__(kThreads)
+grouped_bitlinear_kernel(const uint32_t* __restrict__ x,
+                         const int32_t* __restrict__ offsets,
+                         const uint32_t* __restrict__ w,
+                         int32_t* __restrict__ out, int experts, int n,
+                         int kw) {
+  __shared__ __align__(16) uint32_t xs[kStages][kBM][kLd];
+  __shared__ __align__(16) uint32_t ws[kStages][kBN][kLd];
+  int tile = blockIdx.y, e = 0, start = 0, rows = 0;
+  for (; e < experts; ++e) {  // block-uniform: every thread finds the same
+    start = __ldg(offsets + e);
+    rows = __ldg(offsets + e + 1) - start;
+    const int tiles = (rows + kBM - 1) / kBM;
+    if (tile < tiles) break;
+    tile -= tiles;
+  }
+  if (e == experts) return;  // past the last run's tiles
+  hd_tile<ALIGNED>(x + (size_t)start * kw, w + (size_t)e * n * kw,
+                   out + (size_t)start * n, rows, n, kw, tile * kBM,
+                   blockIdx.x * kBN, xs, ws);
 }
 
 namespace {
@@ -500,5 +547,27 @@ extern "C" int binary_gemm_hd_launch(const void* x, const void* w, void* out,
                       : binary_gemm_hd_kernel<false>;
     fn<<<grid, kThreads, 0, st>>>(xp, wp, op, m, n, kw);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int grouped_bitlinear_launch(const void* x, const void* offsets,
+                                        const void* w, void* out, int s,
+                                        int experts, int n, int kw,
+                                        void* stream) {
+  if (s <= 0 || n <= 0 || experts <= 0 || kw < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // every run's rows start on 16 bytes where x's and w's bases do
+  const bool aligned = kw % 4 == 0 &&
+                       reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  const long long rows = (long long)(s + kBM - 1) / kBM + experts;
+  if (rows > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((n + kBN - 1) / kBN, (unsigned)rows);
+  auto fn = aligned ? grouped_bitlinear_kernel<true>
+                    : grouped_bitlinear_kernel<false>;
+  fn<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(x), static_cast<const int32_t*>(offsets),
+      static_cast<const uint32_t*>(w), static_cast<int32_t*>(out), experts, n,
+      kw);
   return static_cast<int>(cudaGetLastError());
 }

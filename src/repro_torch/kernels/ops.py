@@ -21,6 +21,13 @@ def binary_gemm_hd(x_packed: torch.Tensor,
     return _bg.binary_gemm_hd(x_packed, w_packed)
 
 
+def grouped_bitlinear_hd(x_packed: torch.Tensor, offsets: torch.Tensor,
+                         w_packed: torch.Tensor) -> torch.Tensor:
+    """Each run of rows against its own packed rows, one launch
+    ([S,Kw],[E+1],[E,N,Kw] -> [S,N])."""
+    return _bg.grouped_bitlinear_hd(x_packed, offsets, w_packed)
+
+
 def binary_gemm_dot(x_packed: torch.Tensor, w_packed: torch.Tensor,
                     n_bits: int) -> torch.Tensor:
     """XNOR-popcount dot products in the ±1 domain: n_bits - 2*HD."""

@@ -9,6 +9,12 @@
     differentiable float ±1 product through `sign_ste` (training), which
     is also the plain version the tests hold the packed route against.
 
+  * ``binary_experts`` (port-only architectures, under ``binary_ffn``)
+    -- the MoE's experts as BitLinear too.  At inference with dropless
+    dispatch each projection is one launch of kernel 1's grouped entry,
+    `ops.grouped_bitlinear_hd`, over every expert's run of sorted slots
+    (`grouped_bitlinear_ffn`).  They have no training form.
+
   * ``cam_head`` -- the PiC-BNN CAM-ensemble LM head for greedy decode:
     the vocab projection replaced by Algorithm 1.  The final hidden
     state's sign bits against every binarized vocab row: the votes
@@ -39,9 +45,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.binarize import pack_bits, sign_ste
-from repro_torch.kernels import ops
+from repro_torch.kernels import expert_ffn, ops
+from repro_torch.kernels import rows as row_ops
 from repro_torch.models.layers import _normal_
 from repro_torch.sharding import shard
 from repro_torch.sharding.rules import (is_dtensor, keep, local, local_plan,
@@ -55,18 +63,18 @@ def sign_bits(x: torch.Tensor) -> torch.Tensor:
     return pack_bits((x >= 0).to(torch.uint8))
 
 
-def _once(owner: nn.Module, name: str, w: torch.Tensor, make):
-    """`make(w)`, computed once per version of `w` and kept on `owner`.
+def _once(owner: nn.Module, name: str, w, make):
+    """`make(w)`, computed once per version of `w` (a tensor or a tuple
+    of them) and kept on `owner`.
 
-    Keyed by the tensor's storage (the storage object, whose address a
+    Keyed by each tensor's storage (the storage object, whose address a
     fake tensor of a dry-run lacks), device and version counter (a
     DTensor's: its local shard's), so loading new weights (an in-place
     copy) or moving the model recomputes it.
     """
     cache = owner.__dict__.setdefault("_packed", {})
-    local = w.to_local() if is_dtensor(w) else w
-    key = (id(local.untyped_storage()), local.storage_offset(), local.device,
-           local._version)
+    key = tuple(_version_key(t) for t in (w if isinstance(w, tuple)
+                                          else (w,)))
     hit = cache.get(name)
     if hit is None or hit[0] != key:
         with torch.no_grad():
@@ -78,6 +86,12 @@ def _once(owner: nn.Module, name: str, w: torch.Tensor, make):
 def packed_rows(owner: nn.Module, name: str, w: torch.Tensor) -> torch.Tensor:
     """`w`'s rows as packed sign bits, packed once per weight version."""
     return _once(owner, name, w, sign_bits)
+
+
+def _version_key(w: torch.Tensor) -> tuple:
+    local = w.to_local() if is_dtensor(w) else w
+    return (id(local.untyped_storage()), local.storage_offset(), local.device,
+            local._version)
 
 
 # ---------------------------------------------------------------------------
@@ -179,6 +193,55 @@ def bitlinear_mlp(p: nn.Module, cfg: ModelConfig,
     act = F.gelu(bit(h, "w_in").to(F32), approximate="tanh").to(h.dtype)
     act = shard(act, "batch", "seq", "mlp")
     return shard(bit(act, "w_out"), "batch", "seq", "embed")
+
+
+# ---------------------------------------------------------------------------
+# Binary experts
+# ---------------------------------------------------------------------------
+def expert_bitlinear_weights(owner: nn.Module, name: str):
+    """`owner.<name>` ([E, K, N] latent expert weights) as kernel 1's
+    grouped entry serves it: packed sign rows [E, N, K/32] and alpha =
+    E|w| [E, N] in w's dtype, computed once per weight version."""
+    return _once(owner, name, getattr(owner, name),
+                 lambda w: (sign_bits(w.transpose(1, 2)), w.abs().mean(1)))
+
+
+def expert_gate_up_weights(owner: nn.Module):
+    """The experts' gate and up projections side by side, as one grouped
+    launch serves them: packed sign rows [E, 2F, K/32] (gate rows first)
+    and alphas [E, 2F], once per version of either weight."""
+    def make(_):
+        (rg, ag), (ru, au) = (expert_bitlinear_weights(owner, n)
+                              for n in ("w_gate", "w_up"))
+        return torch.cat([rg, ru], 1), torch.cat([ag, au], 1)
+
+    return _once(owner, "w_gate+w_up", (owner.w_gate, owner.w_up), make)
+
+
+def grouped_bitlinear_ffn(p: nn.Module, x: torch.Tensor, tok: torch.Tensor,
+                          expert: torch.Tensor, offsets: torch.Tensor):
+    """The SwiGLU experts as BitLinear on dropless sorted slots, up to the
+    down projection's distances.
+
+    x [T, D] the tokens; tok [S] each sorted slot's token, expert [S] its
+    expert (non-decreasing), offsets [E + 1] int32 each expert's first
+    slot.  Each token's sign bits and beta = E|x| are taken once
+    (`rows.sign_rows`) and gathered to its slots; gate and up in one
+    grouped launch over all
+    experts (`ops.grouped_bitlinear_hd`), SwiGLU and the down operands'
+    signs and beta in one pass (`expert_ffn.swiglu_signs`), then down in a
+    second grouped launch.  Returns (the down distances [S, D], the down
+    alphas [E, D], each slot's beta [S], F): what
+    `expert_ffn.combine` turns into the layer's output."""
+    d, f = x.shape[1], p.w_down.shape[1]
+    rows_gu, alpha_gu = expert_gate_up_weights(p)
+    rows_down, alpha_down = expert_bitlinear_weights(p, "w_down")
+    bits, beta = row_ops.sign_rows(x)
+    hd = ops.grouped_bitlinear_hd(bits[tok], offsets, rows_gu)
+    bits, beta = expert_ffn.swiglu_signs(hd, alpha_gu, beta[tok], expert, d)
+    obs.count(launches=2 if x.is_cuda else 0)
+    return ops.grouped_bitlinear_hd(bits, offsets, rows_down), alpha_down, \
+        beta, f
 
 
 # ---------------------------------------------------------------------------

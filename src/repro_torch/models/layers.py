@@ -31,7 +31,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import expert_ffn
+from repro_torch.kernels import rows as row_ops
 from repro_torch.models.scan import scan_chunks
 from repro_torch.sharding import shard
 from repro_torch.sharding.rules import (as_dtensor, cut, is_dtensor, keep,
@@ -86,13 +89,13 @@ class Norm(nn.Module):
 
 
 def apply_norm(p: Norm, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """rmsnorm (eps 1e-6) or layernorm (eps 1e-5, biased variance), in
-    float32, cast back to x's dtype."""
-    xf = x.to(F32)
+    """rmsnorm (eps `cfg.norm_eps`, 1e-6 but for the port-only
+    architectures; `kernels.rows.rms_norm`: one launch on the card's bf16
+    rows at inference, the same formula in float32 elsewhere) or layernorm
+    (eps 1e-5, biased variance), in float32, cast back to x's dtype."""
     if cfg.norm == "rmsnorm":
-        var = (xf * xf).mean(-1, keepdim=True)
-        y = xf * torch.rsqrt(var + 1e-6)
-        return (y * p.scale.to(F32)).to(x.dtype)
+        return row_ops.rms_norm(x, p.scale, cfg.norm_eps)
+    xf = x.to(F32)
     mu = xf.mean(-1, keepdim=True)
     var = ((xf - mu) ** 2).mean(-1, keepdim=True)
     y = (xf - mu) * torch.rsqrt(var + 1e-5)
@@ -112,7 +115,9 @@ def _head_norm(x: torch.Tensor) -> torch.Tensor:
 def rope_frequencies(cfg: ModelConfig, device=None) -> torch.Tensor:
     half = cfg.head_dim // 2
     exps = -torch.arange(0, half, dtype=F32, device=device) / half
-    return torch.pow(torch.tensor(cfg.rope_theta, dtype=F32, device=device),
+    # theta filled on the device: a copy from the host would wait for
+    # the work queued on the stream, and a CUDA graph's capture refuses it
+    return torch.pow(torch.full((), cfg.rope_theta, dtype=F32, device=device),
                      exps)
 
 
@@ -133,7 +138,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # decode cache)
 # ---------------------------------------------------------------------------
 class Attention(nn.Module):
-    """wq [d, hq, dh], wk / wv [d, hkv, dh], wo [hq, dh, d]."""
+    """wq [d, hq, dh], wk / wv [d, hkv, dh], wo [hq, dh, d]; with
+    `cfg.qk_norm_scale` the QK-norm scales q_norm / k_norm [dh]."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -142,20 +148,30 @@ class Attention(nn.Module):
         self.wk = _param((d, hkv, hd), cfg, device)
         self.wv = _param((d, hkv, hd), cfg, device)
         self.wo = _param((hq, hd, d), cfg, device)
+        if cfg.qk_norm_scale:
+            self.q_norm = _param((hd,), cfg, device)
+            self.k_norm = _param((hd,), cfg, device)
 
     def draw(self, generator: torch.Generator) -> None:
-        """Every projection normal x d_model^-0.5."""
+        """Every projection normal x d_model^-0.5; QK-norm scales 1."""
         _normal_((self.wq, self.wk, self.wv, self.wo),
                  self.wq.shape[0] ** -0.5, generator)
+        if hasattr(self, "q_norm"):
+            with torch.no_grad():
+                self.q_norm.fill_(1.0)
+                self.k_norm.fill_(1.0)
 
 
 def attention_param_axes(cfg: ModelConfig) -> dict:
-    return {
+    axes = {
         "wq": ("p_attn_d", "p_attn_heads", None),
         "wk": ("p_attn_d", "p_attn_heads", None),
         "wv": ("p_attn_d", "p_attn_heads", None),
         "wo": ("p_attn_heads", None, "p_attn_d"),
     }
+    if cfg.qk_norm_scale:
+        axes.update(q_norm=(None,), k_norm=(None,))
+    return axes
 
 
 def _proj_heads(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -380,7 +396,10 @@ def attention(p: Attention, cfg: ModelConfig, h, positions, inv_freq, *,
     q = _proj_heads(h, p.wq)
     k = _proj_heads(h, p.wk)
     v = _proj_heads(h, p.wv).to(h.dtype)
-    if cfg.qk_norm:
+    if cfg.qk_norm_scale:  # LFM2's: RMS norms of learned scale a head
+        q = row_ops.rms_norm(q.to(h.dtype), p.q_norm, cfg.norm_eps)
+        k = row_ops.rms_norm(k.to(h.dtype), p.k_norm, cfg.norm_eps)
+    elif cfg.qk_norm:
         q, k = _head_norm(q.to(F32)), _head_norm(k.to(F32))
     q = apply_rope(q.to(h.dtype), positions, inv_freq)
     k = apply_rope(k.to(h.dtype), positions, inv_freq)
@@ -480,12 +499,17 @@ def mlp(p: MLP, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 class MoE(nn.Module):
     """router [d, E]; experts' w_gate / w_up [E, d, f], w_down [E, f, d]
-    (gelu: w_in, w_out)."""
+    (gelu: w_in, w_out), f the experts' width (`cfg.expert_d_ff`, else
+    d_ff); with the "sigmoid_bias" router the float32 buffer expert_bias
+    [E], which steers the selection and never the gates."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+        d, f, e = cfg.d_model, cfg.expert_d_ff or cfg.d_ff, cfg.n_experts
         self.router = _param((d, e), cfg, device)
+        if cfg.moe_router == "sigmoid_bias":
+            self.register_buffer("expert_bias", torch.empty(
+                (e,), dtype=F32, device=device))
         if cfg.mlp_act == "swiglu":
             self.w_gate = _param((e, d, f), cfg, device)
             self.w_up = _param((e, d, f), cfg, device)
@@ -495,22 +519,28 @@ class MoE(nn.Module):
             self.w_out = _param((e, f, d), cfg, device)
 
     def draw(self, generator: torch.Generator) -> None:
+        """The projections as `_draw_ffn`; expert_bias 0 (the published
+        initial value)."""
         _draw_ffn(self, generator)
+        if hasattr(self, "expert_bias"):
+            self.expert_bias.zero_()
 
 
 def moe_param_axes(cfg: ModelConfig) -> dict:
+    bias = ({"expert_bias": (None,)} if cfg.moe_router == "sigmoid_bias"
+            else {})
     if cfg.mlp_act == "swiglu":
         return {
             "router": (None, None),
             "w_gate": ("p_expert", "p_mlp_d", "p_mlp_f"),
             "w_up": ("p_expert", "p_mlp_d", "p_mlp_f"),
             "w_down": ("p_expert", "p_mlp_f", "p_mlp_d"),
-        }
+        } | bias
     return {
         "router": (None, None),
         "w_in": ("p_expert", "p_mlp_d", "p_mlp_f"),
         "w_out": ("p_expert", "p_mlp_f", "p_mlp_d"),
-    }
+    } | bias
 
 
 def one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -541,19 +571,33 @@ def moe(p: MoE, cfg: ModelConfig, h: torch.Tensor, *,
     `jax.lax.top_k` may order equal router probabilities differently,
     but random float router logits make a tie a measure-zero event, so
     the tests never meet one.
+
+    With `cfg.moe_dropless` (port-only architectures), autograd off and
+    plain tensors, every routed slot is computed instead
+    (`_moe_dropless`); the capacity path serves training, with float
+    experts only (binary experts, `cfg.binary_experts`, raise there).
     """
     b, s, d = h.shape
     t = b * s
     e, k = cfg.n_experts, cfg.moe_top_k
+    names = ("router",) + (("w_gate", "w_up", "w_down")
+                           if cfg.mlp_act == "swiglu" else ("w_in", "w_out"))
+    if cfg.moe_router == "sigmoid_bias":
+        names += ("expert_bias",)
+    ws = {n: getattr(p, n) for n in names}
+    if cfg.moe_dropless and not torch.is_grad_enabled() \
+            and not is_dtensor(h):
+        return _moe_dropless(p, ws, cfg, h)
+    if cfg.binary_ffn and cfg.binary_experts:
+        raise NotImplementedError(
+            "binary experts run on the dropless path only: autograd off, "
+            "plain tensors")
     g = logical_axis_size("batch")
     if t % g != 0:
         g = 1
     tl = t // g  # tokens per group
     cap = max(int(cfg.capacity_factor * tl * k / e), k)
     x = shard(h.reshape(g, tl, d), "batch", None, "embed")
-    names = ("router",) + (("w_gate", "w_up", "w_down")
-                           if cfg.mlp_act == "swiglu" else ("w_in", "w_out"))
-    ws = {n: getattr(p, n) for n in names}
     if not is_dtensor(x):
         y, probs, idx = _moe_groups(x, ws, cfg, cap)
         if aux is not None:
@@ -592,16 +636,32 @@ def moe(p: MoE, cfg: ModelConfig, h: torch.Tensor, *,
     return shard(y, "batch", "seq", "embed")
 
 
+def _route(x: torch.Tensor, ws: dict, cfg: ModelConfig):
+    """The router on x [..., D], in float32: (scores [..., E], gates
+    [..., k], chosen experts [..., k]).  "softmax": the top-k of the
+    softmax, gates renormalised over them.  "sigmoid_bias" (LFM2):
+    s = sigmoid(x @ router), the top-k of s + expert_bias chosen, the
+    gates the chosen s (without the bias) over their sum + 1e-6."""
+    k = cfg.moe_top_k
+    logits = torch.matmul(x.to(F32), ws["router"].to(F32))
+    if cfg.moe_router == "sigmoid_bias":
+        scores = torch.sigmoid(logits)
+        idx = torch.topk(scores + ws["expert_bias"].to(F32), k,
+                         dim=-1).indices
+        gate = scores.gather(-1, idx)
+        return scores, gate / (gate.sum(-1, keepdim=True) + 1e-6), idx
+    probs = torch.softmax(logits, dim=-1)
+    gate, idx = torch.topk(probs, k, dim=-1)  # [..., k], descending
+    return probs, gate / gate.sum(-1, keepdim=True).clamp_min(1e-9), idx
+
+
 def _moe_groups(x: torch.Tensor, ws: dict, cfg: ModelConfig, cap: int):
     """Dispatch, experts and combine over plain groups x [G, Tl, D] with
     per-group capacity `cap`.  Returns (y [G, Tl, D], router probs
     [G, Tl, E], top-k indices [G, Tl, k])."""
     g, tl, d = x.shape
     e, k = cfg.n_experts, cfg.moe_top_k
-    logits = torch.matmul(x.to(F32), ws["router"].to(F32))
-    probs = torch.softmax(logits, dim=-1)
-    gate, idx = torch.topk(probs, k, dim=-1)  # [G, Tl, k], descending
-    gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+    probs, gate, idx = _route(x, ws, cfg)
 
     flat = one_hot(idx, e).reshape(g, tl * k, e)  # [G, Tl*k, E]
     # priority order within the group: earlier tokens win capacity slots
@@ -632,3 +692,69 @@ def _moe_groups(x: torch.Tensor, ws: dict, cfg: ModelConfig, cap: int):
     y_slots = o_[sel]  # [G, Tl*k, D]; the spare slot's zeros where dropped
     y_slots = (y_slots.to(F32) * gate.reshape(g, tl * k, 1)).to(x.dtype)
     return y_slots.reshape(g, tl, k, d).sum(2), probs, idx
+
+
+def _moe_dropless(p: MoE, ws: dict, cfg: ModelConfig,
+                  h: torch.Tensor) -> torch.Tensor:
+    """The MoE at inference with no capacity: all T * k routed slots,
+    sorted by expert (token order within an expert), offsets [E + 1]
+    marking each expert's run.  Under `+binary-ffn` with
+    `cfg.binary_experts` the experts are kernel 1's grouped entry, one
+    launch for gate and up and one for down over every expert
+    (`binary_lm.grouped_bitlinear_ffn`); else float experts, one product
+    each.  Each token's output is the gate-weighted sum of its k slots',
+    in float32, cast to h's dtype (`kernels.expert_ffn`).
+    h: [B, S, D] -> [B, S, D]."""
+    b, s, d = h.shape
+    t, e, k = b * s, cfg.n_experts, cfg.moe_top_k
+    x = h.reshape(t, d)
+    with obs.span("moe.route"):
+        _, gate, idx = _route(x, ws, cfg)
+        chosen = idx.reshape(t * k)
+        order = torch.argsort(chosen, stable=True)  # sorted slot -> slot
+        expert = chosen[order]  # each sorted slot's expert
+        # each expert's first slot, found on the card (a bincount would
+        # read the largest id back to the host)
+        offsets = torch.searchsorted(
+            expert, torch.arange(e + 1, device=x.device)).to(torch.int32)
+        tok = order // k  # each sorted slot's token
+        if obs.enabled():  # (reading the loads waits for the card)
+            loads = offsets.diff()
+            lo, hi, hit = (int(v) for v in torch.stack(
+                [loads.min(), loads.max(), (loads > 0).sum()]).tolist())
+            obs.count(tokens=t, max_load=hi, min_load=lo, experts_hit=hit)
+    binary = cfg.binary_ffn and cfg.binary_experts
+    with obs.span("moe.experts"):
+        if binary:
+            from repro_torch.models.binary_lm import grouped_bitlinear_ffn
+
+            down = grouped_bitlinear_ffn(p, x, tok, expert, offsets)
+        else:
+            y_sorted = x.new_empty((t * k, d))
+            bounds = offsets.tolist()
+            for j in range(e):
+                lo, hi = bounds[j], bounds[j + 1]
+                if hi > lo:
+                    y_sorted[lo:hi] = _expert_ffn(x[tok[lo:hi]], ws, cfg, j)
+    with obs.span("moe.combine"):
+        back = torch.empty_like(order)
+        back[order] = torch.arange(t * k, device=x.device)
+        if binary:
+            hd, alpha, beta, f = down
+            y = expert_ffn.combine(hd, alpha, beta, expert, back, gate, f)
+        else:
+            y = expert_ffn.combine_values(y_sorted, back, gate)
+        return y.view(b, s, d)
+
+
+def _expert_ffn(x: torch.Tensor, ws: dict, cfg: ModelConfig,
+                j: int) -> torch.Tensor:
+    """Float expert j on its rows x [n, D], as `_moe_groups` computes
+    each slot."""
+    if cfg.mlp_act == "swiglu":
+        g_ = torch.matmul(x, ws["w_gate"][j]).to(F32)
+        u_ = torch.matmul(x, ws["w_up"][j]).to(F32)
+        a_ = (F.silu(g_) * u_).to(x.dtype)
+        return torch.matmul(a_, ws["w_down"][j]).to(x.dtype)
+    a_ = _gelu(torch.matmul(x, ws["w_in"][j]).to(F32)).to(x.dtype)
+    return torch.matmul(a_, ws["w_out"][j]).to(x.dtype)

@@ -7,6 +7,8 @@ One definition, driven entirely by ModelConfig:
   * MoE transformers (mixtral, llama4-maverick)
   * attention-free SSM (falcon-mamba)
   * hybrid interleaves (jamba: 1 attn : 7 mamba, MoE every other layer)
+  * and the port-only lfm2-8b-a1b: gated short-conv ("conv") sublayers
+    beside attention, a dense FFN then sigmoid-routed dropless MoE
 
 `CausalLM` holds `embed`, a `ModuleList` of blocks (each the config's
 LayerPattern superblock: `sub0`, `sub1`, ... sublayers), `final_norm`,
@@ -22,6 +24,9 @@ Entry points:
                                     aux), each block and chunk under the
                                     config's remat policy
   init_cache / prefill / decode  -- serving paths
+  prefill_graphed                -- prefill replayed from a CUDA graph,
+                                    for prompts of one shape again and
+                                    again
   param_axes / cache_axes        -- each leaf's logical axes (the
                                     reference's, blocks axis dropped);
                                     `*_pspecs` map them through a rule set
@@ -46,6 +51,7 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import binary_lm
 from repro_torch.models import layers as L
@@ -61,9 +67,14 @@ FULL_WINDOW = 1 << 30
 # ---------------------------------------------------------------------------
 # Parameters
 # ---------------------------------------------------------------------------
+def _has_ffn(cfg: ModelConfig, kind: str) -> bool:
+    return kind in ("attn", "conv") or cfg.family == "hybrid"
+
+
 class Sublayer(nn.Module):
-    """norm1 + attn (or mamba), then norm2 + ffn (dense MLP or MoE) on
-    attention sublayers and on hybrid mamba sublayers."""
+    """norm1 + attn (or mamba, or conv: LFM2's gated short conv), then
+    norm2 + ffn (dense MLP or MoE) on attention and conv sublayers and on
+    hybrid mamba sublayers."""
 
     def __init__(self, cfg: ModelConfig, kind: str, use_moe: bool, device):
         super().__init__()
@@ -72,9 +83,11 @@ class Sublayer(nn.Module):
             self.attn = L.Attention(cfg, device)
         elif kind == "mamba":
             self.mamba = S.Mamba(cfg, device)
+        elif kind == "conv":
+            self.conv = S.ShortConv(cfg, device)
         else:
             raise ValueError(kind)
-        if kind == "attn" or cfg.family == "hybrid":
+        if _has_ffn(cfg, kind):
             self.norm2 = L.Norm(cfg, device)
             self.ffn = (L.MoE if use_moe else L.MLP)(cfg, device)
 
@@ -157,9 +170,11 @@ def _sublayer_axes(cfg: ModelConfig, kind: str, use_moe: bool) -> dict:
     p = {"norm1": norm_ax}
     if kind == "attn":
         p["attn"] = L.attention_param_axes(cfg)
+    elif kind == "conv":
+        p["conv"] = S.short_conv_param_axes(cfg)
     else:
         p["mamba"] = S.mamba_param_axes(cfg)
-    if kind == "attn" or cfg.family == "hybrid":
+    if _has_ffn(cfg, kind):
         p["norm2"] = norm_ax
         p["ffn"] = L.moe_param_axes(cfg) if use_moe else L.mlp_param_axes(cfg)
     return p
@@ -273,16 +288,25 @@ def _remat_wrap(cfg: ModelConfig, fn):
 
 def _run_sublayer(p: Sublayer, cfg: ModelConfig, kind: str, use_moe: bool,
                   window: Optional[int], h, positions, inv_freq,
-                  cache: Optional[dict], cache_index, aux: Optional[dict]):
+                  cache: Optional[dict], cache_index, aux: Optional[dict],
+                  taps: Optional[list] = None):
+    if taps is not None:
+        taps.append(h)
     x = L.apply_norm(p.norm1, cfg, h)
     if kind == "attn":
         w = FULL_WINDOW if window is None else window
-        y, new_cache = L.attention(p.attn, cfg, x, positions, inv_freq,
-                                   window=w, cache=cache,
-                                   cache_index=cache_index)
+        with obs.span("lm.attention"):
+            y, new_cache = L.attention(p.attn, cfg, x, positions, inv_freq,
+                                       window=w, cache=cache,
+                                       cache_index=cache_index)
+    elif kind == "conv":
+        with obs.span("lm.short_conv"):
+            y, new_cache = S.short_conv(p.conv, cfg, x, cache=cache)
     else:
         y, new_cache = S.mamba_block(p.mamba, cfg, x, cache=cache)
     h = h + y
+    if taps is not None:
+        taps.append(h)
     if hasattr(p, "ffn"):
         x2 = L.apply_norm(p.norm2, cfg, h)
         if use_moe:
@@ -294,7 +318,8 @@ def _run_sublayer(p: Sublayer, cfg: ModelConfig, kind: str, use_moe: bool,
 
 
 def _run_block(block: Block, cfg: ModelConfig, h, positions, inv_freq,
-               block_cache: Optional[dict], cache_index, collect_aux: bool):
+               block_cache: Optional[dict], cache_index, collect_aux: bool,
+               taps: Optional[list] = None):
     """One superblock.  Returns (h, its new cache dict, its MoE aux loss
     or None)."""
     pat = cfg.pattern()
@@ -306,17 +331,19 @@ def _run_block(block: Block, cfg: ModelConfig, h, positions, inv_freq,
         c = block_cache[sub] if block_cache is not None else None
         h, nc = _run_sublayer(getattr(block, sub), cfg, pat.kinds[i],
                               pat.moe_mask[i], pat.windows[i], h,
-                              positions, inv_freq, c, cache_index, aux)
+                              positions, inv_freq, c, cache_index, aux,
+                              taps)
         if nc is not None:
             new_cache[sub] = nc
     return h, new_cache, (aux["moe_aux"] if collect_aux else None)
 
 
 def _stack(params: CausalLM, cfg: ModelConfig, h, positions, cache,
-           cache_index, collect_aux: bool):
+           cache_index, collect_aux: bool, taps: Optional[list] = None):
     """Run the block stack.  cache: a list of per-block dicts or None.
     Returns (h, new cache or None, summed MoE aux loss).  Under autograd
-    each block runs through the config's remat policy."""
+    each block runs through the config's remat policy.  `taps` (autograd
+    off): see `prefill`."""
     inv_freq = L.rope_frequencies(cfg, h.device)
     aux_sum = torch.zeros((), dtype=F32, device=h.device)
     new_cache = [] if cache is not None else None
@@ -329,11 +356,13 @@ def _stack(params: CausalLM, cfg: ModelConfig, h, positions, cache,
         h, block_cache, aux = block_fn(
             block, cfg, h, positions, inv_freq,
             cache[b] if cache is not None else None, cache_index,
-            collect_aux)
+            collect_aux, *(() if taps is None else (taps,)))
         if new_cache is not None:
             new_cache.append(block_cache)
         if collect_aux:
             aux_sum = aux_sum + aux
+    if taps is not None:
+        taps.append(h)
     return h, new_cache, aux_sum
 
 
@@ -474,7 +503,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device=None) -> list:
     """A list over blocks of {sub_i: cache}: attention sublayers hold
     k/v [B, L, G, dh] and pos [B, L] (-1 = empty; L is max_len, capped at
-    the window), mamba sublayers their conv taps and float32 state.
+    the window), mamba sublayers their conv taps and float32 state, conv
+    sublayers their last `cfg.conv_cache - 1` inputs.
     `device` None means the CUDA card.
     Inside `sharding.use_rules(rules, mesh)` each leaf is a DTensor laid
     out by `cache_pspecs`, each rank making only its own shard."""
@@ -492,9 +522,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     def one_block(b):
         out = {}
         for i in range(pat.size):
+            kind = pat.kinds[i]
             leaves = (_attn_cache_leaves(cfg, batch, max_len, pat.windows[i])
-                      if pat.kinds[i] == "attn"
-                      else S.mamba_cache_leaves(cfg, batch))
+                      if kind == "attn"
+                      else S.short_conv_cache_leaves(cfg, batch)
+                      if kind == "conv" else S.mamba_cache_leaves(cfg, batch))
             out[f"sub{i}"] = {n: leaf(b, f"sub{i}", n, *spec)
                               for n, spec in leaves.items()}
         return out
@@ -514,6 +546,8 @@ def cache_axes(cfg: ModelConfig) -> list:
                 "v": ("batch", "kv_seq", "kv_heads", None),
                 "pos": ("batch", "kv_seq"),
             }
+        elif pat.kinds[i] == "conv":
+            block[f"sub{i}"] = {"conv": ("batch", None, "embed")}
         else:
             block[f"sub{i}"] = {
                 "conv": ("batch", None, "mlp"),
@@ -530,25 +564,76 @@ def cache_pspecs(cfg: ModelConfig, rules) -> list:
 
 @torch.no_grad()
 def prefill(params: CausalLM, cfg: ModelConfig, tokens=None, embeds=None,
-            max_len: Optional[int] = None):
+            max_len: Optional[int] = None, *, taps: Optional[list] = None):
     """Process the prompt; return (last-position logits [B, V], cache).
 
     max_len sizes the cache (>= prompt length); decode steps beyond it
     roll (window semantics).  Default: prompt length + 64 decode slots.
-    Autograd is off, so a BitLinear FFN runs on kernel 1.
+    Autograd is off, so a BitLinear FFN runs on kernel 1.  The whole call
+    is the span `lm.prefill`.  `taps`, a list, receives the residual
+    stream [B, S, D] as the call computes it: each sublayer's input and
+    its state after the operator (before the FFN), in order, then the
+    last sublayer's output (what a check holds against a reference layer
+    by layer).
     """
-    b, s = (tokens.shape if tokens is not None else embeds.shape[:2])
-    dev = params.device
-    positions = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s)
-    cache = init_cache(cfg, b, max_len if max_len is not None else s + 64,
-                       dev)
-    with _sharded(params):
-        h = _embed_in(params, cfg, tokens, embeds)
-        h, new_cache, _ = _stack(params, cfg, h, positions, cache, None,
-                                 False)
-        h = L.apply_norm(params.final_norm, cfg, h[:, -1:, :])
-        return shard(_logits(params, cfg, h)[:, 0], "batch",
-                     "vocab"), new_cache
+    with obs.span("lm.prefill"):
+        b, s = (tokens.shape if tokens is not None else embeds.shape[:2])
+        dev = params.device
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=dev).expand(b, s)
+        cache = init_cache(cfg, b, max_len if max_len is not None
+                           else s + 64, dev)
+        with _sharded(params):
+            h = _embed_in(params, cfg, tokens, embeds)
+            h, new_cache, _ = _stack(params, cfg, h, positions, cache, None,
+                                     False, taps)
+            h = L.apply_norm(params.final_norm, cfg, h[:, -1:, :])
+            return shard(_logits(params, cfg, h)[:, 0], "batch",
+                         "vocab"), new_cache
+
+
+@torch.no_grad()
+def prefill_graphed(params: CausalLM, cfg: ModelConfig, tokens,
+                    max_len: Optional[int] = None):
+    """`prefill` of token ids, replayed from a CUDA graph on the card: for
+    a caller that prefills prompts of one shape again and again (a serving
+    step's prefill budget), where the host's launches of the thousands of
+    operations of a prefill op by op would pace the call.
+
+    A graph is captured at the second call with the same tokens' shape,
+    `max_len` and weights (the first runs op by op and builds and packs
+    everything the graph reads) and replayed from then on; a change to
+    any parameter or buffer (a load, an update in place) captures anew.
+    The tokens are copied into the graph's own input, and the logits and
+    the cache are returned as fresh tensors, so a later replay overwrites
+    nothing a caller holds.  Off the card, on a mesh, or while spans are
+    recorded (`obs.enabled()`, so that each span sees its own launches:
+    the same kernels a replay runs), it is `prefill`.  A replay runs no
+    Python, so no launch counter counts it.
+    """
+    if params.device.type != "cuda" or obs.enabled() or \
+            R.current_mesh() is not None:
+        return prefill(params, cfg, tokens, max_len=max_len)
+    weights = tuple((t.data_ptr(), t._version) for t in
+                    (*params.parameters(), *params.buffers()))
+    key = (tuple(tokens.shape), tokens.dtype, max_len)
+    graphs = params.__dict__.setdefault("_prefill_graphs", {})
+    if any(w != weights for w, _ in graphs.values()):
+        graphs.clear()  # the weights changed: every graph reads old ones
+    entry = graphs.get(key)
+    if entry is None:  # first call: op by op
+        graphs[key] = (weights, None)
+        return prefill(params, cfg, tokens, max_len=max_len)
+    if entry[1] is None:  # second call: capture
+        graph, static = torch.cuda.CUDAGraph(), tokens.clone()
+        with torch.cuda.graph(graph):
+            out = prefill(params, cfg, static, max_len=max_len)
+        graphs[key] = entry = (weights, (graph, static, out))
+    graph, static, (logits, cache) = entry[1]
+    static.copy_(tokens)
+    graph.replay()
+    return logits.clone(), [{sub: {n: t.clone() for n, t in leaves.items()}
+                             for sub, leaves in blk.items()} for blk in cache]
 
 
 @torch.no_grad()

@@ -106,7 +106,8 @@ def init_mamba_cache(cfg: ModelConfig, batch: int, dtype=None,
 
 
 def _causal_conv(x, w, b, conv_state=None):
-    """Depthwise causal conv along S. x: [B, S, din], w: [kc, din].
+    """Depthwise causal conv along S. x: [B, S, din], w: [kc, din], b:
+    [din] or None (no bias).
 
     conv_state: [B, kc-1, din], the trailing inputs of the previous
     segment (zeros when None).  Returns (y [B, S, din], new_state).
@@ -117,10 +118,12 @@ def _causal_conv(x, w, b, conv_state=None):
         torch.cat([conv_state.to(x.dtype), x], dim=1)
     # y[t] = sum_j w[j] * xp[t + j], as shifted adds in float32 (the
     # reference's from 0; 0 + t is t)
-    y = xp[:, :s, :].to(F32) * w[0].to(F32)
+    xf, wf = xp.to(F32), w.to(F32)
+    y = xf[:, :s, :] * wf[0]
     for j in range(1, kc):
-        y = y + xp[:, j:j + s, :].to(F32) * w[j].to(F32)
-    y = y + b.to(F32)
+        y = y + xf[:, j:j + s, :] * wf[j]
+    if b is not None:
+        y = y + b.to(F32)
     new_state = xp[:, s:, :]  # the last kc - 1 inputs
     return y.to(x.dtype), new_state
 
@@ -270,4 +273,53 @@ def mamba_block(p: Mamba, cfg: ModelConfig, x: torch.Tensor, *,
     new_cache = None
     if cache is not None:
         new_cache = {"conv": new_conv.to(cache["conv"].dtype), "h": h}
+    return out, new_cache
+
+
+# ---------------------------------------------------------------------------
+# Gated short convolution (LFM2's "conv" sublayer)
+# ---------------------------------------------------------------------------
+class ShortConv(nn.Module):
+    """in_proj [d, 3d], conv_w [kc, d] (kc = `cfg.conv_cache`), out_proj
+    [d, d]; no biases."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        d = cfg.d_model
+        self.in_proj = _param((d, 3 * d), cfg, device)
+        self.conv_w = _param((cfg.conv_cache, d), cfg, device)
+        self.out_proj = _param((d, d), cfg, device)
+
+    def draw(self, generator: torch.Generator) -> None:
+        """Every weight normal x fan_in^-0.5 (the conv's fan-in its
+        taps)."""
+        for w in (self.in_proj, self.conv_w, self.out_proj):
+            _normal_((w,), w.shape[0] ** -0.5, generator)
+
+
+def short_conv_param_axes(cfg: ModelConfig) -> dict:
+    return {"in_proj": ("p_ssm_d", None), "conv_w": (None, None),
+            "out_proj": (None, "p_ssm_d")}
+
+
+def short_conv_cache_leaves(cfg: ModelConfig, batch: int) -> dict:
+    """{leaf: (shape, dtype, fill)}: the conv's last kc - 1 inputs."""
+    return {"conv": ((batch, cfg.conv_cache - 1, cfg.d_model),
+                     cfg.torch_dtype, 0)}
+
+
+def short_conv(p: ShortConv, cfg: ModelConfig, x: torch.Tensor, *,
+               cache: Optional[dict] = None):
+    """transformers' `Lfm2ShortConv`: B, C, x = chunk(x @ in_proj, 3);
+    y = (C * causal_depthwise_conv(B * x)) @ out_proj, the conv through
+    `_causal_conv` with the cache's last inputs before x.  x: [B, S, D]
+    -> ([B, S, D], new_cache or None)."""
+    bcx = _matmul(x, p.in_proj).to(x.dtype)
+    gate_b, gate_c, xx = torch.chunk(bcx, 3, dim=-1)
+    conv_state = cache["conv"] if cache is not None else None
+    y, new_conv = _causal_conv(gate_b * xx, p.conv_w, None, conv_state)
+    out = _matmul(gate_c * y, p.out_proj).to(x.dtype)
+    new_cache = None
+    if cache is not None:
+        new_cache = {"conv": new_conv.to(cache["conv"].dtype)}
     return out, new_cache

@@ -35,6 +35,18 @@ The spans the port opens (PERF.md section 3 names the metric each feeds):
     physics.fit     `SearchPhysics.for_head` (the Table-I fit)
     kernels.load    a CUDA library's first load, its build included;
                     counts built (libraries nvcc compiled)
+    lm.prefill      one per `models.model.prefill` call
+    lm.attention    an attention sublayer (`layers.attention`)
+    lm.short_conv   a gated short-conv sublayer (`ssm.short_conv`)
+    moe.route       the dropless MoE's router, biased top-k, sort by
+                    expert and offsets; counts tokens, max_load,
+                    min_load, experts_hit (reading them waits for the
+                    card, so only while recording)
+    moe.experts     its experts: the tokens' signs, the grouped kernel-1
+                    launches (gate and up, then down), SwiGLU and the
+                    down operands; counts launches (grouped launches,
+                    2 a layer on the card, 0 on the CPU)
+    moe.combine     the gate-weighted sum back in token order
 
 `profiler_offset_ns()` is the one conversion from these stamps to the
 clock of `torch.profiler`'s events (`on_profiler_clock`).
