@@ -9,8 +9,9 @@ exit 0):
    kernels from the sources in this checkout, timed, with ptxas' report
    (registers, spills, shared memory) and each library's tensor-core
    instructions in its SASS (`cuobjdump -sass`: IMMA, BMMA); the four
-   kernel libraries must hold some (the keyed sampler's, the fifth, holds
-   none: it draws, it does not multiply).
+   kernel libraries must hold some (the keyed sampler's, the expert and
+   row kernels' and the input packing's hold none: they draw, scale or
+   compare, they do not multiply).
 2. Each kernel at the main path's shapes against its plain PyTorch
    version on the card: `torch.equal` is required.  Kernels 1-3 at the
    paper's MNIST 784-128-10 and Hand-Gesture 4096-128-20 MLPs, kernel 4
@@ -222,11 +223,22 @@ exit 0):
    sublayer norm, a QK norm and the final norm), and the call's ms at 2
    and 4 prompts, op by op and replayed from a CUDA graph
    (`prefill_graphed`), in an `{"lfm2": ...}` line.
-13. A `{"kernels": [...]}` line (launches on the kernel's path, on the
+13. The input packing (`pack_phase`, callable alone): both entries of
+   `kernels/pack_input.py`, the ±1 sign pack (`sign_words`) and the
+   thermometer code (`threshold_words`), at the HG cells' shapes (32,768
+   rows of 4,096 float32, thermometer-4) and MNIST's (784, thermometer-8)
+   equal to their plain twins (`binarize.pack_pm1`,
+   `InputEncoding.pack`) on the card, device ms a launch beside the bytes
+   bound (the float32 rows read, the words written) and the plain twin's
+   ms; then one `run` of an HG MLP and an HG CNN pipeline at 32,768 rows
+   launches each entry once; a `{"pack": ...}` line.
+14. A `{"kernels": [...]}` line (launches on the kernel's path, on the
    silicon, train, LM, long-context, LM-training, mesh, dry-run and
    examples paths, error, times, sampled-form times, bound, the LM-shape,
    long-context and examples rows; the LFM2 prefill's kernels with their
-   launches a call, error, time and bound), then, as the last line,
+   launches a call, error, time and bound; the input packing's entries
+   with their launches a `run` call and on the main path, which must
+   launch both), then, as the last line,
    `{"ok": true, "device": ...}`.
 
 Without CUDA, or without the rest of the repository beside it, the script
@@ -287,6 +299,8 @@ SOURCES = {
     "expert_combine": "src/repro_torch/kernels/csrc/expert_ffn.cu",
     "rms_norm_rows": "src/repro_torch/kernels/csrc/rows.cu",
     "sign_rows": "src/repro_torch/kernels/csrc/rows.cu",
+    "sign_words": "src/repro_torch/kernels/csrc/pack_input.cu",
+    "threshold_words": "src/repro_torch/kernels/csrc/pack_input.cu",
 }
 # the keyed sampler's work a normal (csrc/keyed_sampler.cu): Threefry-2x32-20
 # in 32-bit ALU operations (20 rounds of add, funnel-shift, xor and the key
@@ -3596,6 +3610,94 @@ def lfm2_phase(dev, card: Card, smi: str) -> dict:
                 peak_gb=peak, card=smi)
 
 
+# the input packing's shapes (phase 13): the HG cells' 32,768 rows of
+# 4,096 floats (the MLP's ±1 inputs, the CNN's 64 x 64 pixels at
+# thermometer-4), and MNIST's 784 (the MLP, the CNN at thermometer-8)
+PACK_ROWS = 32768
+PACK_SHAPES = (("hg_mlp", 4096, None), ("hg_cnn", 4096, 4),
+               ("mnist_mlp", 784, None), ("mnist_cnn", 784, 8))
+
+
+def pack_phase(dev, card: Card, smi: str) -> dict:
+    """Phase 13 (module docstring): the input-packing kernel's two entries
+    (`kernels/pack_input.py`) at the cells' shapes against their plain
+    twins (`binarize.pack_pm1`, `InputEncoding.pack`) on the card, timed
+    beside the bytes bound (float32 rows in, words out); then the launches
+    of one `run` of an HG MLP and an HG CNN pipeline at the cells' batch."""
+    from repro_torch.configs.paper_cnn import HG_CNN, build_cnn_pipeline
+    from repro_torch.configs.paper_mlp import HG_MLP, PAPER_ENSEMBLE
+    from repro_torch.core import binarize, bnn, convnet
+    from repro_torch.kernels import pack_input
+    from repro_torch.pipeline import compile_pipeline
+    from repro_torch.spec import InferenceSpec
+
+    gen = torch.Generator(dev).manual_seed(SEED + 13)
+    rows = {}
+    for name, n, width in PACK_SHAPES:
+        x = torch.rand((PACK_ROWS, n), generator=gen, device=dev)
+        if width is None:
+            x = 2 * x - 1
+
+            def kernel():
+                return pack_input.sign_words(x)
+
+            def plain():
+                return binarize.pack_pm1(x)
+            out_bytes = PACK_ROWS * binarize.packed_width(n) * 4
+        else:
+            enc = binarize.InputEncoding("thermometer", width)
+
+            def kernel():
+                return pack_input.threshold_words(x, enc)
+
+            def plain():
+                return enc.pack(x)
+            out_bytes = x.numel() * binarize.packed_width(width) * 4
+        require(torch.equal(kernel(), plain()),
+                f"pack {name} [{PACK_ROWS}, {n}]: kernel != plain")
+        nbytes = x.numel() * 4 + out_bytes
+        rows[name] = row = dict(
+            entry="sign_words" if width is None else "threshold_words",
+            shape=f"[{PACK_ROWS},{n}]" + ("" if width is None
+                                          else f" thermometer-{width}"),
+            ms=device_ms(kernel, iters=20), call_ms=time_ms(kernel, 20),
+            plain_ms=device_ms(plain, iters=2, replays=2),
+            bound_ms=nbytes / MEM_BYTES_PER_S * 1e3, bound_by="bytes",
+            bound_route="bytes", bytes=nbytes)
+        row["bandwidth_tb_s"] = nbytes / row["ms"] / 1e9
+        print(f"  pack {name:9s} {row['shape']}: kernel {row['ms']:.4f} ms "
+              f"(call {row['call_ms']:.4f} ms, "
+              f"{row['bandwidth_tb_s']:.2f} TB/s), plain "
+              f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({smi})")
+        del x
+    # launches in one run() of each HG pipeline at the cells' batch
+    mlp = compile_pipeline(random_folded(HG_MLP.layer_sizes, SEED + 1,
+                                         HG_MLP.bias_cells, bnn),
+                           PAPER_ENSEMBLE, device=dev)
+    cnn = build_cnn_pipeline(HG_CNN, convnet.random_folded_cnn(
+        HG_CNN, seed=SEED + 3), device=dev)
+    launches = {}
+    for name, pipe, fn, x in (
+            ("hg_mlp", mlp, pack_input.sign_words,
+             2 * torch.rand((PACK_ROWS, 4096), generator=gen, device=dev)
+             - 1),
+            ("hg_cnn", cnn, pack_input.threshold_words,
+             torch.rand((PACK_ROWS, 4096), generator=gen, device=dev))):
+        pipe.run(x, InferenceSpec())
+        before = fn.launches
+        pipe.run(x, InferenceSpec())
+        torch.cuda.synchronize()
+        launches[name] = fn.launches - before
+        rows[name]["launches_a_call"] = launches[name]
+    print(f"  pack launches a run() call: {launches}")
+    require(launches == {"hg_mlp": 1, "hg_cnn": 1},
+            f"pack launches a run() call {launches}, expected 1 each")
+    del mlp, cnn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(rows=rows, launches=launches, card=smi)
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3645,7 +3747,7 @@ def main() -> int:
 
 def run(dev: torch.device, b_main: int, batches, card: Card,
         smi: str) -> list:
-    """Phases 2-11 on `dev`; returns the kernels line's entries.
+    """Phases 2-13 on `dev`; returns the kernels line's entries.
 
     Called with the card by `main`; a CPU rehearsal may call it with
     device "cpu" and small batches (every kernel then takes its plain
@@ -3656,7 +3758,7 @@ def run(dev: torch.device, b_main: int, batches, card: Card,
     from repro_torch.configs.paper_mlp import HG_MLP, MNIST_MLP, PAPER_ENSEMBLE
     from repro_torch.core import binarize, bnn, convnet, ensemble
     from repro_torch.kernels import (binary_gemm, cam_search, fused_conv,
-                                     fused_mlp, ops, ref)
+                                     fused_mlp, ops, pack_input, ref)
     from repro_torch.pipeline import compile_pipeline
     from repro_torch.serve.picbnn import BatchingPolicy, PicBnnServer
     from repro_torch.spec import InferenceSpec
@@ -3842,7 +3944,8 @@ def run(dev: torch.device, b_main: int, batches, card: Card,
                                                      inf_per_s=bsz / ms * 1e3)
                 print(f"  run {mid:9s} B={bsz:5d} {sname:10s}: {ms:.4f} ms "
                       f"-> {bsz / ms * 1e3:,.0f} inf/s")
-    # the CNN input layer alone (InputEncoding.pack) at the largest batch
+    # the CNN input layer alone (ConvFront.pack: the packing kernel on the
+    # card) at the largest batch
     for mid, m in cnns.items():
         xd = torch.from_numpy(m["x"]).to(dev)
         pack = m["gpu"].conv.pack
@@ -3870,8 +3973,11 @@ def run(dev: torch.device, b_main: int, batches, card: Card,
     counted = (binary_gemm.binary_gemm_hd, cam_search.cam_vote,
                fused_mlp.fused_mlp_votes, fused_conv.fused_conv_votes,
                fused_conv.conv_stage_packed)
+    # the input packing's entries, counted on this path only (the later
+    # phases check that each kernel in `counted` has a checked call)
+    packers = (pack_input.sign_words, pack_input.threshold_words)
     served_models = {**models, **cnns}
-    for fn in counted:
+    for fn in (*counted, *packers):
         fn.launches = 0
     results = {}
     t0 = time.perf_counter()
@@ -3898,12 +4004,13 @@ def run(dev: torch.device, b_main: int, batches, card: Card,
     if on_card:
         torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in counted}
+    launches = {fn.__name__: fn.launches for fn in (*counted, *packers)}
     stats = server.stats()
     print(f"main path: {main_s:.2f} s, launches {launches}")
     print(stats.summary())
     for fn in (binary_gemm.binary_gemm_hd, fused_mlp.fused_mlp_votes,
-               fused_conv.fused_conv_votes, fused_conv.conv_stage_packed):
+               fused_conv.fused_conv_votes, fused_conv.conv_stage_packed,
+               *packers):
         # (a CPU rehearsal launches nothing)
         require(launches[fn.__name__] > 0 or not on_card,
                 f"{fn.__name__} was not launched on the main path")
@@ -3992,6 +4099,10 @@ def run(dev: torch.device, b_main: int, batches, card: Card,
     lfm2 = lfm2_phase(dev, card, smi)
     print(json.dumps({"lfm2": lfm2}))
 
+    # ------------------------------------------- input packing (phase 13)
+    pack = pack_phase(dev, card, smi) if on_card else None
+    print(json.dumps({"pack": pack}))
+
     # ------------------------------------------------------------ summary
     line = []
     for name, r in report.items():
@@ -4054,6 +4165,18 @@ def run(dev: torch.device, b_main: int, batches, card: Card,
             bound_ms=rows[0]["bound_ms"], bound_by=rows[0]["bound_by"],
             bound_route=rows[0]["bound_route"], shape=rows[0]["shape"],
             rows=rows, card=smi))
+    for name in ("sign_words", "threshold_words") if pack else ():
+        rows = [r for r in pack["rows"].values() if r["entry"] == name]
+        line.append(dict(
+            name=name, route="cuda", source=SOURCES[name], replaces=None,
+            path="pipeline run + server (CompiledPipeline._pack_input)",
+            launches=rows[0]["launches_a_call"],
+            main_path_launches=launches[name], equal=True,
+            ms=rows[0]["ms"], kernel_ms=rows[0]["ms"],
+            call_ms=rows[0]["call_ms"], plain_ms=rows[0]["plain_ms"],
+            bound_ms=rows[0]["bound_ms"], bound_by="bytes",
+            bound_route="bytes", shape=rows[0]["shape"], rows=rows,
+            card=smi))
     return line
 
 

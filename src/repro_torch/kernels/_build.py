@@ -25,7 +25,7 @@ from repro_torch import obs
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("binary_gemm", "cam_search", "fused_mlp", "fused_conv",
-           "keyed_sampler", "expert_ffn", "rows")
+           "keyed_sampler", "expert_ffn", "rows", "pack_input")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -73,6 +73,11 @@ _SIGNATURES = {
         "keyed_thresholds_launch": (
             [_VOID_P] * 4 + [_FLOAT] * 4 + [_INT] * 4 + [_VOID_P] * 2
         ),
+    },
+    "pack_input": {
+        "sign_pack_launch": [_VOID_P, _LONG, _INT] + [_VOID_P] * 2,
+        "threshold_pack_launch": [_VOID_P, _LONG, _INT, _INT]
+        + [_VOID_P] * 2,
     },
 }
 

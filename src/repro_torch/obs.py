@@ -26,7 +26,10 @@ The spans the port opens (PERF.md section 3 names the metric each feeds):
 
     run             one per public `CompiledPipeline.run` / `run_packed`
                     call; counts rows, bucket
-    run.pack        the input packing of `run`
+    run.pack        the input packing of `run`; counts kernel (the
+                    launches of `kernels/pack_input.py`'s kernel in it:
+                    1 on the card, 0 on the CPU, for a bit-plane code or
+                    a head-only MLP)
     run.bucket      bucket padding and the key checks
     run.program     the spec's program on the padded batch
     sampler         `SearchPhysics.sample` / `.sample_keyed`

@@ -86,7 +86,7 @@ from repro_torch.core.convnet import is_conv_layer
 from repro_torch.core.device_model import AnalogParams, NoiseModel
 from repro_torch.core.ensemble import CAMEnsembleHead, EnsembleConfig, build_head
 from repro_torch.core.physics import SearchPhysics
-from repro_torch.kernels import fused_conv, fused_mlp, ops
+from repro_torch.kernels import fused_conv, fused_mlp, ops, pack_input
 from repro_torch.spec import InferenceSpec, legacy_entry_spec
 
 
@@ -176,8 +176,13 @@ class ConvFront:
     head_direct: bool  # no FC hidden layer: the flatten feeds the head
 
     def pack(self, x01: torch.Tensor) -> torch.Tensor:
-        """[B, side*side] pixels -> [B, side*side*Cw0] packed words."""
-        words = self.encoding.pack(x01)
+        """[B, side*side] pixels -> [B, side*side*Cw0] packed words: the
+        packing kernel on the card for a thermometer or sign code
+        (`pack_input.threshold_words`), else `InputEncoding.pack`."""
+        if self.encoding.kind == "bitplane":
+            words = self.encoding.pack(x01)
+        else:
+            words = pack_input.threshold_words(x01, self.encoding)
         return words.reshape(words.shape[0], -1)
 
     def maps(self, x_packed: torch.Tensor) -> torch.Tensor:
@@ -274,7 +279,10 @@ class CompiledPipeline:
                 raise ValueError(f"expected x [B, {self.n_in}], got "
                                  f"{tuple(x.shape)}")
             with obs.span("run.pack"):
+                n0 = pack_input.launched()
                 x_packed = self._pack_input(x)
+                if obs.enabled():
+                    obs.count(kernel=pack_input.launched() - n0)
             return self._run_packed(x_packed, spec, key, keys)
 
     def run_packed(self, x_packed: torch.Tensor, spec: InferenceSpec, *,
@@ -432,7 +440,7 @@ class CompiledPipeline:
             return self.conv.pack(x)
         if self.head_only:
             return query_with_bias(x, self.head.bias_cells)
-        return binarize.pack_pm1(x)
+        return pack_input.sign_words(x)
 
     def _bucketed(self, x_packed: torch.Tensor):
         b = x_packed.shape[0]
